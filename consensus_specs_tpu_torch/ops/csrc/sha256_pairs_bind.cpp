@@ -1,7 +1,7 @@
-// PyTorch binding of sha256_pairs.cu, for torch.utils.cpp_extension.load.
-// The one file of the port that includes PyTorch's headers.  The Python
-// wrapper (ops/sha256_cuda.py) checks shape, dtype, device, contiguity and
-// alignment before it calls in.
+// PyTorch binding of sha256_pairs.cu and sha256_gather.cu, for
+// torch.utils.cpp_extension.load.  The one file of the port that includes
+// PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py) check shape,
+// dtype, device, contiguity, alignment and offsets before they call in.
 
 #include <torch/extension.h>
 #include <c10/cuda/CUDAException.h>
@@ -10,6 +10,9 @@
 
 extern "C" int sha256_pairs_launch(const void* in, void* out, int64_t n_pairs,
                                    void* stream);
+extern "C" int sha256_gather_launch(void* pool, const void* idx_l,
+                                    const void* idx_r, int64_t out_offset,
+                                    int64_t n_pairs, void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -20,6 +23,19 @@ void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
+// pool[out_offset + i] = SHA-256(pool[idx_l[i]] || pool[idx_r[i]]), on the
+// current stream.
+void sha256_gather(torch::Tensor pool, const torch::Tensor& idx_l,
+                   const torch::Tensor& idx_r, int64_t out_offset) {
+  const c10::cuda::CUDAGuard guard(pool.device());
+  const int rc = sha256_gather_launch(
+      pool.data_ptr(), idx_l.data_ptr(), idx_r.data_ptr(), out_offset,
+      idx_l.size(0), c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_pairs", &sha256_pairs, "SHA-256 of each 64-byte chunk pair");
+  m.def("sha256_gather", &sha256_gather,
+        "SHA-256 of chunk pairs gathered by index, written in place");
 }

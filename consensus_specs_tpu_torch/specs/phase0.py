@@ -5,7 +5,8 @@ consensus-specs phase0 rules (specs/phase0/beacon-chain.md) function by
 function.  This slice ports the constants, the SSZ containers, the math
 helpers, the predicates and accessors that need neither shuffling nor BLS,
 and the per-slot transition (`process_slots` / `process_slot`), whose state
-root is the port's main path.  Block processing, the fork-choice and
+root is the port's main path; `process_slots` tracks the state for
+incremental merkleization as the reference does (ssz/incremental.py).  Block processing, the fork-choice and
 validator-duty mixins, shuffling and BLS come with later slices of the port
 (ROADMAP.md); `process_epoch` raises until the epoch slice lands.
 
@@ -18,6 +19,7 @@ from ..ssz import (
     Vector, List, Container, Bytes4, Bytes32, Bytes48, Bytes96,
     hash_tree_root, serialize, uint_to_bytes,
 )
+from ..ssz import incremental as ssz_incremental
 from ..ssz.merkle import is_valid_merkle_branch as _merkle_branch_ok
 from ..utils.hash import hash as sha256_hash
 from .base import BaseSpec
@@ -419,6 +421,10 @@ class Phase0Spec(BaseSpec):
     # ------------------------------------------------------------------
     def process_slots(self, state, slot) -> None:
         assert state.slot < slot
+        # opt-in incremental merkleization: track the state so each
+        # hash_tree_root below re-hashes only the dirty cone (no-op while
+        # the mode is disabled)
+        ssz_incremental.track(state)
         while state.slot < slot:
             self.process_slot(state)
             if (state.slot + 1) % self.SLOTS_PER_EPOCH == 0:

@@ -2,7 +2,8 @@
 
 Counterpart of consensus_specs_tpu/ssz: the spec-facing surface of the
 consensus-specs eth2spec.utils.ssz.{ssz_typing,ssz_impl} (types.py /
-merkle.py / impl.py).  Incremental merkleization is not ported yet.
+merkle.py / impl.py), incremental merkleization (incremental.py) and
+generalized-index proofs (proofs.py).
 """
 from .types import (  # noqa: F401
     SSZType, uint, uint8, uint16, uint32, uint64, uint128, uint256,
@@ -17,3 +18,4 @@ from .merkle import (  # noqa: F401
     merkleize_chunks, mix_in_length, get_merkle_proof, is_valid_merkle_branch,
     ZERO_HASHES, use_device_hashing, use_host_hashing,
 )
+from . import incremental, proofs  # noqa: F401  (dirty-subtree hash_tree_root)

@@ -19,7 +19,9 @@ What differs:
 
 `use_host_hashing()` uninstalls both device hashers; it is the plain
 reference a device run is checked against.  `stats` counts the pairs each
-side hashed.
+side hashed, incremental re-roots (ssz/incremental.py) included: a fused
+sweep's pairs go to "device_pairs", and a sweep below the bulk threshold
+hashes its rounds with `_hash_level`, which counts them as "host_pairs".
 """
 from __future__ import annotations
 

@@ -19,8 +19,7 @@ from .merkle import (
 
 BYTES_PER_CHUNK = 32
 
-# Incremental-merkleization seam (ssz/incremental.py in the JAX package; not
-# ported yet, so both stay None here).  While that mode
+# Incremental-merkleization seam (ssz/incremental.py).  While that mode
 # is enabled it installs `_inc_root_hook` (view -> cached/swept root, or
 # None to fall through to the legacy full computation) and `_inc_mut`
 # (the mutation-hook table that keeps dirty-chunk tracking current).

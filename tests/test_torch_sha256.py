@@ -120,14 +120,15 @@ def test_wrapper_rejects_bad_input(bad, exc):
 
 
 def _c_table(name):
-    src = open(sha256_cuda.KERNEL_SOURCE).read()
+    src = open(sha256_cuda.CORE_SOURCE).read()
     body = re.search(name + r"\[\d+\] = \{(.*?)\};", src, re.S).group(1)
     return [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)]
 
 
 def test_kernel_constant_tables_match_the_spec():
-    """The kernel's constant tables (it cannot run here): K, the IV, and
-    the pad block's expanded schedule folded with K."""
+    """The kernels' constant tables (they cannot run here), in the SHA-256
+    body both kernels share: K, the IV, and the pad block's expanded
+    schedule folded with K."""
     assert _c_table("kK") == [int(k) for k in jsha._K]
     assert _c_table("kIV") == [int(v) for v in jsha._IV]
     w = [int(v) for v in jsha._PAD_BLOCK]

@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 
 import consensus_specs_tpu_torch as port
+from consensus_specs_tpu.sigpipe import METRICS as JMETRICS
 from consensus_specs_tpu.specs import get_spec as reference_spec
+from consensus_specs_tpu.ssz import incremental as jinc
 from consensus_specs_tpu_torch.convert import state_from_ssz
 from consensus_specs_tpu_torch.ops import sha256_cuda
+from consensus_specs_tpu_torch.sigpipe import METRICS as TMETRICS
 from consensus_specs_tpu_torch.specs import get_spec
+from consensus_specs_tpu_torch.ssz import incremental as tinc
 from consensus_specs_tpu_torch.ssz import merkle
 
 N_VALIDATORS = 4096
@@ -81,6 +85,37 @@ def test_state_root_and_process_slots_match_jax():
     assert state.slot == end
     assert state.encode_bytes() == ref.encode_bytes()
     assert bytes(spec.hash_tree_root(state)) == bytes(ref_spec.hash_tree_root(ref))
+
+
+def test_incremental_process_slots_match_jax():
+    """process_slots tracks the state: with incremental mode on in both
+    packages, the cache build (one fused sweep in the port, through the
+    gather-hash wrapper) and the per-slot diff re-roots give the
+    reference's bytes, roots and sweep counts."""
+    ref_spec, ref = _reference_state(98, N_VALIDATORS)
+    spec = get_spec("phase0", "mainnet")
+    state = state_from_ssz(spec, ref.encode_bytes())
+    end = START_SLOT + 3
+    jinc.enable()
+    tinc.enable()
+    JMETRICS.reset()
+    TMETRICS.reset()
+    try:
+        plain_before = sha256_cuda.hash_gather_pairs_cuda.plain_calls
+        ref_spec.process_slots(ref, end)
+        spec.process_slots(state, end)
+        assert tinc.is_tracked(state)
+        assert sha256_cuda.hash_gather_pairs_cuda.plain_calls > plain_before
+        assert state.encode_bytes() == ref.encode_bytes()
+        root = bytes(spec.hash_tree_root(state))
+        assert root == bytes(ref_spec.hash_tree_root(ref))
+        for name in ("merkle_cache_builds", "merkle_sweep_dispatches",
+                     "merkle_chunks_hashed", "merkle_dirty_nodes"):
+            assert TMETRICS.count(name) == JMETRICS.count(name), name
+        assert TMETRICS.count("merkle_cache_builds") == 1
+    finally:
+        jinc.disable()
+        tinc.disable()
 
 
 def test_process_slots_stops_at_the_epoch_slice():
