@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, the per-slot BeaconState root
-(slice 1) and incremental re-roots (slice 2), and holds every kernel of those
-paths against its plain PyTorch version:
+Drives the port's three paths on the card, the per-slot BeaconState root
+(slice 1), incremental re-roots (slice 2) and the phase0 epoch transition
+(slice 3), and holds every kernel of those paths against its plain PyTorch
+version:
 
 1. device: requires a CUDA card and prints its name and power limit;
-2. build: builds both SHA-256 kernels, pair-hash and gather-hash, from the
-   repository's sources;
+2. build: builds the three kernels, SHA-256 pair-hash and gather-hash and
+   the epoch sweep, from the repository's sources;
 3. kernel: the pair-hash kernel against the plain torch version on the card,
    bit for bit, at 1, 255, 256, 257, 65,537, 2**17 and 2**20 pairs, with rows
    checked against hashlib, and the times of kernel (replayed from a CUDA
@@ -28,7 +29,18 @@ paths against its plain PyTorch version:
 6. gather kernel: the gather-hash kernel against the plain torch version on
    the card, bit for bit, for two rounds with cross-round indices at 1, 255,
    257, 65,537 and 2**17 pairs a round and at the cache build's largest
-   round, with rows checked against hashlib, and its times.
+   round, with rows checked against hashlib, and its times;
+7. epoch: the same seeded state at slot 127 with pending attestations and
+   registry edge cases (`epoch_state`), incremental mode on and the sweep's
+   guard at rate 1, advanced to slot 128 with `process_slots`: one sweep
+   dispatch on the epoch-sweep kernel, every lane held against the plain
+   version, and the root at slot 128 equal to the host-hashed oracle and to
+   the JAX package's (POST_EPOCH_ROOT_128); prints the seconds of each part
+   of the epoch;
+8. epoch kernel: the epoch-sweep kernel against the plain torch version on
+   the card, bit for bit on every output lane, for both families, with and
+   without a leak, without rewards and with electra's slashings, at 1, 255,
+   257, 65,537, 2**18 and 2**20 lanes, and its times.
 
 Each phase prints its seconds.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
@@ -36,6 +48,7 @@ failure raises and exits non-zero.  There is no CPU path.
 """
 import hashlib
 import json
+import math
 import random
 import subprocess
 import time
@@ -44,8 +57,10 @@ import numpy as np
 import torch
 
 import consensus_specs_tpu_torch as port
-from consensus_specs_tpu_torch.ops import sha256, sha256_cuda
-from consensus_specs_tpu_torch.specs import get_spec
+from consensus_specs_tpu_torch.ops import (
+    cuda_build, epoch_sweep, epoch_sweep_cuda, sha256, sha256_cuda)
+from consensus_specs_tpu_torch.sigpipe import METRICS
+from consensus_specs_tpu_torch.specs import epoch_fast, get_spec
 from consensus_specs_tpu_torch.ssz import incremental, merkle
 
 SEED = 2026
@@ -53,15 +68,39 @@ N_VALIDATORS = 1 << 18          # bench.py EPOCH_VALIDATORS
 START_SLOT = 97                 # no epoch boundary up to slot 127
 END_SLOT = 99                   # the main path: two process_slot calls
 INC_END_SLOT = 101              # the incremental path: four
+EPOCH_SLOT = 127                # the epoch path: process_slots 127 -> 128
 # the post-state root at slot 101 of the seeded state, advanced with full
 # rebuilds (chip_smoke.py's four-slot main path before incremental re-roots)
 FULL_REBUILD_ROOT_101 = (
     "9d5159b701792b2ec49b6180984c36ecd7bd55e18b4e3dbdd298da57be0366b6")
+# the JAX package's root at slot 128 of epoch_state(spec, N_VALIDATORS)
+# after process_slots(state, 128), on the CPU
+# (scripts/torch_epoch_reference_root.py)
+POST_EPOCH_ROOT_128 = (
+    "68891d02776f70579e92d08fa22c5e02bd4440b3f3761ca435846dc70d13f648")
 KERNEL_SIZES = (1, 255, 256, 257, 65537, 1 << 17, 1 << 20)
 TIMED_SIZES = (1 << 17, 1 << 20)
 MAIN_PATH_PAIRS = 1 << 17       # the largest level of the main path
 GATHER_SIZES = (1, 255, 257, 65537, 1 << 17)  # and the cache build's largest
 COMMITTEE = 128                 # bench.py COMMITTEE: balances a block credits
+EPOCH_KERNEL_SIZES = (1, 255, 257, 65537, 1 << 18, 1 << 20)
+EPOCH_TIMED = 1 << 18           # the epoch path's sweep
+EPOCH_PROPOSERS = 32            # a previous epoch's block proposers
+# name: (family, leak, do_rewards, electra)
+EPOCH_CASES = {
+    "phase0": ("phase0", False, True, False),
+    "phase0 leak": ("phase0", True, True, False),
+    "phase0 no rewards": ("phase0", False, False, False),
+    "altair": ("altair", False, True, False),
+    "altair leak": ("altair", True, True, False),
+    "altair no rewards": ("altair", False, False, False),
+    "electra": ("altair", False, True, True),
+}
+# int64 operations of a phase0 sweep lane in the reference's formula (the
+# masks, base reward, three components, inclusion delay, slashings,
+# hysteresis and registry masks), each counted as one 32-bit instruction:
+# a lower bound, since an int64 multiply or division takes several
+EPOCH_OPS_PER_LANE = 60
 
 # H100 SXM data sheet: HBM3 at 3.35 TB/s.  No instruction mix issues faster
 # than 128 lanes per SM per clock (four schedulers, one 32-lane warp
@@ -167,9 +206,9 @@ def device_phase():
 
 @phase("build")
 def build_phase():
-    sha256_cuda.build()
-    print(f"sha256_pairs and sha256_gather built by {sha256_cuda.build_route} "
-          f"into {sha256_cuda.BUILD_DIR}")
+    cuda_build.build()
+    print(f"sha256_pairs, sha256_gather and epoch_sweep built by "
+          f"{cuda_build.build_route} into {cuda_build.BUILD_DIR}")
 
 
 def bound(n_pairs, bytes_per_pair, n_sms, max_mhz):
@@ -230,10 +269,10 @@ def kernel_phase(n_sms, max_mhz):
     return max_err, times
 
 
-def seeded_state(spec, n):
+def seeded_state(spec, n, slot=START_SLOT):
     """Mainnet-preset phase0 state shaped like bench.py's epoch state:
     n active validators with synthetic keys, balances around 32 ETH, and
-    seeded roots, mixes and slashings; at START_SLOT with an empty header
+    seeded roots, mixes and slashings; at `slot` with an empty header
     state root."""
     rng = np.random.default_rng(SEED)
     max_eb = int(spec.MAX_EFFECTIVE_BALANCE)
@@ -263,10 +302,80 @@ def seeded_state(spec, n):
             withdrawable_epoch=spec.FAR_FUTURE_EPOCH)
         for i in range(n)]
     state.balances = [int(b) for b in max_eb + rng.integers(-10**9, 10**9, n)]
-    state.slot = START_SLOT
+    state.slot = slot
     state.latest_block_header = spec.BeaconBlockHeader(
-        slot=START_SLOT - 1, proposer_index=int(rng.integers(0, n)),
+        slot=slot - 1, proposer_index=int(rng.integers(0, n)),
         parent_root=rng.bytes(32), body_root=rng.bytes(32))
+    return state
+
+
+def epoch_state(spec, n):
+    """seeded_state at EPOCH_SLOT, the last slot of epoch 3, with what a
+    phase0 epoch transition reads (seeded from SEED + 3, so seeded_state's
+    draws are unchanged):
+
+    - 8 previous-epoch PendingAttestations over 4 committees, each
+      committee attested twice with different inclusion delays and
+      proposers; one has a wrong target root and one a wrong head root;
+      about 90% of the aggregation bits set;
+    - 4 current-epoch attestations with the right target, for
+      justification;
+    - 2 slashed validators withdrawable at epoch 3 + 4096 (inside the
+      slashings window), 1 at the ejection balance, 1 with
+      activation_eligibility_epoch FAR (the eligibility queue) and 1 with
+      activation_epoch FAR and eligibility 0 (the activation queue).
+
+    Committees are sized from the active count alone (the spec's
+    compute_committee slices), so the bits need no committee lookup."""
+    state = seeded_state(spec, n, EPOCH_SLOT)
+    rng = np.random.default_rng(SEED + 3)
+    far = int(spec.FAR_FUTURE_EPOCH)
+    cur = EPOCH_SLOT // int(spec.SLOTS_PER_EPOCH)
+    for i in (10, 11):
+        v = state.validators[i]
+        v.slashed = True
+        v.exit_epoch = cur + 5
+        v.withdrawable_epoch = cur + int(spec.EPOCHS_PER_SLASHINGS_VECTOR) // 2
+    state.validators[12].effective_balance = int(spec.config.EJECTION_BALANCE)
+    state.balances[12] = int(spec.config.EJECTION_BALANCE)
+    state.validators[13].activation_eligibility_epoch = far
+    state.validators[14].activation_epoch = far
+
+    slots_per_epoch = int(spec.SLOTS_PER_EPOCH)
+    active = n - 1                     # validator 14 is not active yet
+    per_slot = max(1, min(int(spec.MAX_COMMITTEES_PER_SLOT),
+                          active // slots_per_epoch
+                          // int(spec.TARGET_COMMITTEE_SIZE)))
+    count = per_slot * slots_per_epoch
+
+    def attestation(slot, index, target_ok, head_ok, delay):
+        k = (slot % slots_per_epoch) * per_slot + index
+        size = active * (k + 1) // count - active * k // count
+        epoch = slot // slots_per_epoch
+        target = (bytes(spec.get_block_root(state, epoch)) if target_ok
+                  else rng.bytes(32))
+        head = (bytes(state.block_roots[slot % spec.SLOTS_PER_HISTORICAL_ROOT])
+                if head_ok else rng.bytes(32))
+        return spec.PendingAttestation(
+            aggregation_bits=[bool(b) for b in rng.random(size) < 0.9],
+            data=spec.AttestationData(
+                slot=slot, index=index, beacon_block_root=head,
+                target=spec.Checkpoint(epoch=epoch, root=target)),
+            inclusion_delay=delay,
+            proposer_index=int(rng.integers(0, n)))
+
+    prev_start = (cur - 1) * slots_per_epoch
+    committees = [(prev_start + 3, 0), (prev_start + 9, per_slot - 1),
+                  (prev_start + 17, 1 % per_slot), (prev_start + 30, 0)]
+    flags = [(True, True), (False, True), (True, False), (True, True)]
+    state.previous_epoch_attestations = [
+        attestation(slot, index, *flags[j] if copy == 0 else (True, True),
+                    delay=1 + copy + j)
+        for j, (slot, index) in enumerate(committees) for copy in (0, 1)]
+    cur_start = cur * slots_per_epoch
+    state.current_epoch_attestations = [
+        attestation(cur_start + s, 0, True, True, delay=1)
+        for s in (2, 7, 11, 20)]
     return state
 
 
@@ -599,6 +708,287 @@ def gather_kernel_phase(n_sms, max_mhz, largest):
     return max_err, timed[largest]
 
 
+class EpochRecorder:
+    """Host clocks around the parts of one fused epoch.  Each part is
+    looked up by specs/epoch_fast.py when it is called, so wrapping the
+    module attribute (or the spec instance's method) times it in place."""
+
+    PARTS = (
+        ("StateArrays", epoch_fast, "StateArrays"),
+        ("phase0_attestation_masks", epoch_fast, "phase0_attestation_masks"),
+        ("run_sweep: upload, kernels and download", epoch_sweep,
+         "run_sweep"),
+        ("guard: plain_sweep on the host", epoch_fast, "_guard"),
+        ("writeback: _bulk_write of the balances", epoch_fast, "_bulk_write"),
+        ("_apply_registry", epoch_fast, "_apply_registry"),
+        ("effective-balance writes", epoch_fast,
+         "_write_effective_balances"))
+
+    def __init__(self, spec):
+        self.calls = {}
+        self.results = {}
+        self._saved = []
+        for label, owner, name in self.PARTS:
+            self._wrap(label, owner, name, getattr(owner, name))
+        for label, name in (("justification: weigh",
+                             "weigh_justification_and_finalization"),
+                            ("process_epoch", "process_epoch")):
+            self._wrap(label, spec, name, getattr(spec, name), instance=True)
+
+    def _wrap(self, label, owner, name, fn, instance=False):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.calls.setdefault(label, []).append(time.perf_counter() - t0)
+            self.results[label] = out
+            return out
+        self._saved.append((owner, name, None if instance else fn))
+        setattr(owner, name, run)
+
+    def close(self):
+        for owner, name, fn in self._saved:
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+
+    def seconds(self, label):
+        return sum(self.calls.get(label, ()))
+
+
+@phase("epoch")
+def epoch_phase():
+    """The epoch path: process_slots 127 -> 128 on the card with
+    incremental mode on and every sweep lane held against plain_sweep."""
+    spec = get_spec("phase0", "mainnet")
+    t0 = time.perf_counter()
+    state = epoch_state(spec, N_VALIDATORS)
+    print(f"epoch state of {N_VALIDATORS} validators at slot {EPOCH_SLOT} "
+          f"({len(state.previous_epoch_attestations)} previous-epoch and "
+          f"{len(state.current_epoch_attestations)} current-epoch pending "
+          f"attestations) built in {time.perf_counter() - t0:.6f} s",
+          flush=True)
+    sweep = epoch_sweep_cuda.epoch_sweep_cuda
+    gather = sha256_cuda.hash_gather_pairs_cuda
+    sha256.reset_literal_pool()
+    incremental.enable(guard_sample_rate=0.0)
+    epoch_fast.set_guard(1.0)
+    rec = EpochRecorder(spec)
+    try:
+        METRICS.reset()
+        plain_calls = (sweep.plain_calls, gather.plain_calls)
+        sweep.launches = 0
+        gather.launches = 0
+        t0 = time.perf_counter()
+        spec.process_slots(state, EPOCH_SLOT + 1)
+        torch.cuda.synchronize()
+        slots_s = time.perf_counter() - t0
+        launches = sweep.launches
+        epoch_gather = gather.launches
+        t0 = time.perf_counter()
+        root = bytes(spec.hash_tree_root(state))
+        torch.cuda.synchronize()
+        reroot_s = time.perf_counter() - t0
+        reroot_gather = gather.launches - epoch_gather
+        check((sweep.plain_calls, gather.plain_calls) == plain_calls,
+              "epoch: a wrapper took its plain version on the card path")
+        t0 = time.perf_counter()
+        oracle = host_oracle(state)
+        oracle_s = time.perf_counter() - t0
+    finally:
+        rec.close()
+        epoch_fast.set_guard(0.0)
+        incremental.disable()
+    snapshot = METRICS.snapshot()
+    check(snapshot.get("epoch_sweep_dispatches") == 1,
+          f"epoch: {snapshot.get('epoch_sweep_dispatches')} sweep "
+          f"dispatches, expected 1")
+    check(launches > 0, "epoch: the sweep launched no epoch_sweep kernel")
+    check(snapshot.get("epoch_guard_samples") == 1
+          and not snapshot.get("epoch_guard_mismatches"),
+          "epoch: the guard did not hold every lane once")
+    check(reroot_gather > 0,
+          "epoch: the post-epoch re-root launched no sha256_gather")
+    check(root == oracle,
+          f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} != host-hashed "
+          f"oracle {oracle.hex()}")
+    check(root.hex() == POST_EPOCH_ROOT_128,
+          f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} != the JAX "
+          f"package's {POST_EPOCH_ROOT_128}")
+    epoch_s = rec.seconds("process_epoch")
+    masks = rec.calls.get("phase0_attestation_masks", [])
+    print(f"epoch: process_slots {EPOCH_SLOT} -> {EPOCH_SLOT + 1} "
+          f"{slots_s:.6f} s: process_slot's root (the cache build) "
+          f"{slots_s - epoch_s:.6f} s, process_epoch {epoch_s:.6f} s")
+    print(f"epoch: StateArrays {rec.seconds('StateArrays'):.6f} s")
+    print(f"epoch: phase0_attestation_masks, previous epoch {masks[0]:.6f} s")
+    weigh = rec.seconds("justification: weigh")
+    print(f"epoch: justification {masks[1] + weigh:.6f} s (current-epoch "
+          f"target mask {masks[1]:.6f} s, weigh {weigh:.6f} s)")
+    for label, _owner, _name in EpochRecorder.PARTS[2:]:
+        print(f"epoch: {label} {rec.seconds(label):.6f} s")
+    print(f"epoch: re-root at slot {EPOCH_SLOT + 1} {reroot_s:.6f} s "
+          f"({reroot_gather} sha256_gather launches); host-hashed oracle "
+          f"{oracle_s:.6f} s")
+    print(f"epoch: {rec.results['effective-balance writes']} effective "
+          f"balances changed, {snapshot.get('epoch_writeback_elems')} "
+          f"elements written back, {launches} epoch_sweep launches, "
+          f"{epoch_gather} sha256_gather launches in process_slots")
+    print(f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} == host "
+          f"oracle == JAX package")
+    return launches
+
+
+def sweep_columns(rng, n):
+    """Seeded numpy columns of both sweep families at n lanes: FAR epochs
+    in every epoch column, slashed lanes in and out of the slashings
+    window, balances around the hysteresis thresholds, and source
+    attesters whose best inclusion keys name EPOCH_PROPOSERS proposers.
+    Returns (columns, scalars, electra's eff and max_eff)."""
+    incr = 10**9
+    far = np.uint64((1 << 64) - 1)
+    cur, prev, finalized = 10, 9, 7
+    slash_epoch = cur + 4096
+
+    def epochs(far_share, lo, hi):
+        e = rng.integers(lo, hi, n).astype(np.uint64)
+        e[rng.random(n) < far_share] = far
+        return e
+    eff = (rng.integers(0, 33, n) * incr).astype(np.int64)
+    eff[rng.random(n) < 0.05] = 16 * incr
+    slashed = rng.random(n) < 0.08
+    withdrawable = epochs(0.5, 0, 20)
+    withdrawable[slashed & (rng.random(n) < 0.5)] = np.uint64(slash_epoch)
+    balances = np.maximum(eff + rng.integers(-2 * incr, 2 * incr, n),
+                          0).astype(np.int64)
+    src = rng.random(n) < 0.8
+    tgt = src & (rng.random(n) < 0.9)
+    head = tgt & (rng.random(n) < 0.9)
+    best_key = np.where(src, (rng.integers(1, 33, n) << 24)
+                        | rng.integers(0, 1 << 20, n),
+                        np.iinfo(np.int64).max).astype(np.int64)
+    proposers = rng.integers(0, n, EPOCH_PROPOSERS)
+    best_prop = np.where(src, rng.choice(proposers, n), 0).astype(np.int64)
+    scores = rng.integers(0, 50, n).astype(np.int64)
+    scores[rng.random(n) < 0.05] = 10**6
+    cols = {
+        "eff": eff, "slashed": slashed, "activation": epochs(0.1, 0, 12),
+        "exit_epoch": epochs(0.7, 0, 14), "act_elig": epochs(0.2, 0, 12),
+        "withdrawable": withdrawable, "balances": balances,
+        "max_eff": np.full(n, 32 * incr, np.int64),
+        "src": src, "tgt": tgt, "head": head, "best_key": best_key,
+        "best_prop": best_prop,
+        "part_prev": rng.integers(0, 8, n).astype(np.int64),
+        "scores": scores}
+    big = rng.random(n) < 0.3
+    electra_max = np.where(big, 2048 * incr, 32 * incr).astype(np.int64)
+    electra_eff = np.where(big, rng.integers(32, 2049, n) * incr,
+                           eff).astype(np.int64)
+    tb = max(incr, int(eff.sum()))
+    scalars = {"cur": cur, "prev": prev, "finalized": finalized,
+               "slash_epoch": slash_epoch, "tb": tb,
+               "adj": min(3 * 10**15, tb), "sqrt_tb": math.isqrt(tb),
+               "finality_delay": prev - finalized,
+               "base_per_incr": incr * 64 // math.isqrt(tb), "bias": 4,
+               "recovery": 16, "inact_denom": 4 * 50331648}
+    return cols, scalars, (electra_eff, electra_max)
+
+
+def sweep_case(base, case):
+    """(columns on the card, scalars, statics) of one EPOCH_CASES case."""
+    cols, scalars, (electra_eff, electra_max) = base
+    family, leak, do_rewards, electra = EPOCH_CASES[case]
+    names = (epoch_sweep.PHASE0_COLS if family == "phase0"
+             else epoch_sweep.ALTAIR_COLS)
+    picked = {k: cols[k] for k in names}
+    if electra:
+        picked.update(eff=electra_eff, max_eff=electra_max)
+    statics = {"do_rewards": do_rewards, "leak": leak, "incr": 10**9,
+               "max_eb": 32 * 10**9, "ejection": 16 * 10**9, "hyst_q": 4,
+               "hyst_down": 1, "hyst_up": 5}
+    if family == "phase0":
+        statics.update(brf=64, brpe=4, prop_q=8, inact_q=1 << 26)
+    else:
+        statics.update(electra=electra, wd=64, target_flag=1,
+                       flags=((0, 14, False), (1, 26, False), (2, 14, True)))
+    on_card = {k: torch.from_numpy(
+        v if k in epoch_sweep.BOOL_COLS else v.view(np.int64)).cuda()
+        for k, v in picked.items()}
+    return on_card, scalars, tuple(sorted(statics.items()))
+
+
+def sweep_bytes(cols, lanes):
+    """Bytes one sweep must move: each input lane read once, each output
+    lane written once."""
+    return (sum(t.numel() * t.element_size() for t in cols.values())
+            + sum(t.numel() * t.element_size() for t in lanes))
+
+
+@phase("epoch kernel")
+def epoch_kernel_phase(n_sms, max_mhz):
+    """epoch_sweep against plain_sweep on the card, bit for bit on every
+    output lane, for every case at every size; then its times."""
+    rng = np.random.default_rng(SEED + 4)
+    sweep = epoch_sweep_cuda.epoch_sweep_cuda
+    max_err = 0
+    timed = None
+    for n in EPOCH_KERNEL_SIZES:
+        base = sweep_columns(rng, n)
+        for case in EPOCH_CASES:
+            cols, scalars, statics = sweep_case(base, case)
+            got = sweep(cols, scalars, statics)
+            want = epoch_sweep.plain_sweep(cols, scalars, statics)
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got, want))
+            max_err = max(max_err, err)
+            check(err == 0 and all(g.dtype == w.dtype
+                                   for g, w in zip(got, want)),
+                  f"epoch_sweep != plain_sweep at {n} lanes, {case} "
+                  f"(max |diff| {err})")
+        print(f"{n} lanes: epoch_sweep == plain_sweep bit for bit in "
+              f"{len(EPOCH_CASES)} cases", flush=True)
+        if n not in (EPOCH_TIMED, 1 << 20):
+            continue
+        cols, scalars, statics = sweep_case(base, "phase0")
+        _buf, lanes = epoch_sweep.lane_buffers(False, n, "cuda")
+
+        def run(c=cols):
+            sweep(c, scalars, statics, out=lanes)
+        kernel_ms = graph_ms(run, 50)
+        eager_ms = cuda_ms(run, 50)
+        plain_ms = cuda_ms(
+            lambda: epoch_sweep.plain_sweep(cols, scalars, statics), 3)
+        spread = dict(cols, best_prop=torch.arange(
+            n, dtype=torch.int64, device="cuda"))
+        spread_ms = graph_ms(lambda: run(spread), 50)
+        a_cols, a_scalars, a_statics = sweep_case(base, "altair")
+        _abuf, a_lanes = epoch_sweep.lane_buffers(True, n, "cuda")
+        altair_ms = graph_ms(lambda: sweep(a_cols, a_scalars, a_statics,
+                                           out=a_lanes), 50)
+        n_bytes = sweep_bytes(cols, lanes)
+        byte_ms = n_bytes / MEMORY_BYTES_PER_S * 1e3
+        op_ms = EPOCH_OPS_PER_LANE * n / (
+            n_sms * SCHEDULER_LANES_PER_SM_PER_CLOCK * max_mhz * 1e6) * 1e3
+        a_byte_ms = sweep_bytes(a_cols, a_lanes) / MEMORY_BYTES_PER_S * 1e3
+        print(f"{n} lanes, phase0 sweep (3 launches): epoch_sweep "
+              f"{kernel_ms:.6f} ms from a CUDA graph, {eager_ms:.6f} ms "
+              f"launched eagerly; with {EPOCH_PROPOSERS} proposers taking "
+              f"every attester's atomic, against {spread_ms:.6f} ms with "
+              f"a proposer a lane; plain torch {plain_ms:.6f} ms; bound "
+              f"{byte_ms:.6f} ms by {n_bytes} bytes "
+              f"({n_bytes / n:.0f} a lane), {op_ms:.6f} ms by "
+              f"{EPOCH_OPS_PER_LANE * n} operations; altair sweep "
+              f"{altair_ms:.6f} ms (bound {a_byte_ms:.6f} ms by bytes); "
+              f"no PyTorch call computes the sweep, so no library time")
+        if n == EPOCH_TIMED:
+            timed = dict(ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=max(byte_ms, op_ms),
+                         bound_by="bytes" if byte_ms >= op_ms
+                         else "operations")
+    return max_err, timed
+
+
 def main():
     card, n_sms, max_mhz = device_phase()
     build_phase()
@@ -606,6 +996,8 @@ def main():
     launches = main_path_phase()
     gather_launches, largest = incremental_phase()
     gather_err, g = gather_kernel_phase(n_sms, max_mhz, largest)
+    epoch_launches = epoch_phase()
+    epoch_err, e = epoch_kernel_phase(n_sms, max_mhz)
     t = times[MAIN_PATH_PAIRS]
     print(json.dumps({"kernels": [{
         "name": "sha256_pairs", "route": "cuda",
@@ -619,7 +1011,13 @@ def main():
         "replaces": "consensus_specs_tpu/ops/sha256.py:146",
         "launches": gather_launches, "max_abs_err": gather_err,
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-        "bound_by": g["bound_by"], "library_ms": None}]}))
+        "bound_by": g["bound_by"], "library_ms": None}, {
+        "name": "epoch_sweep", "route": "cuda",
+        "source": "consensus_specs_tpu_torch/ops/csrc/epoch_sweep.cu",
+        "replaces": "consensus_specs_tpu/ops/epoch_sweep.py:74",
+        "launches": epoch_launches, "max_abs_err": epoch_err,
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

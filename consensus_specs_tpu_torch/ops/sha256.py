@@ -275,8 +275,9 @@ def fused_rounds(literals: bytes, rounds, stats: dict | None = None) -> list:
     if not rounds:
         return []
     from .. import get_device
-    from .sha256_cuda import _require_device, hash_gather_pairs_cuda
-    device = _require_device(get_device())
+    from .cuda_build import require_device
+    from .sha256_cuda import hash_gather_pairs_cuda
+    device = require_device(get_device())
     n_lits = len(literals) // 32
     sizes = [len(il) for il, _ir in rounds]
     if any(len(ir) != n for (_il, ir), n in zip(rounds, sizes)):

@@ -11,11 +11,7 @@ sm_90a, share one SHA-256 body (csrc/sha256_core.cuh):
   gathered from a pool of chunks by index, hashed, and written back into the
   same pool at the round's offset.
 
-Both are built from the package's own sources at first use, into one
-extension or library under `build/torch_ext/` beside the package: with
-`torch.utils.cpp_extension.load` where `ninja` is installed, else with one
-`nvcc` a source, all started together, linked into a plain C library loaded
-with ctypes.  Nothing is built while this module is imported.
+Both are built at first use with the port's other kernels (ops/cuda_build.py).
 
 `hash_pairs_cuda` and `hash_gather_pairs_cuda` are the wrappers.  On CUDA
 tensors each launches its kernel or raises; on CPU tensors it runs the plain
@@ -25,115 +21,13 @@ the plain version.
 """
 from __future__ import annotations
 
-import ctypes
 import os
-import subprocess
-from types import SimpleNamespace
 
 import torch
 
-from . import sha256
+from . import cuda_build, sha256
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-KERNEL_SOURCE = os.path.join(_CSRC, "sha256_pairs.cu")
-GATHER_SOURCE = os.path.join(_CSRC, "sha256_gather.cu")
-CORE_SOURCE = os.path.join(_CSRC, "sha256_core.cuh")
-BINDING_SOURCE = os.path.join(_CSRC, "sha256_pairs_bind.cpp")
-KERNEL_SOURCES = (KERNEL_SOURCE, GATHER_SOURCE)
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "torch_ext")
-ARCH_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
-
-_kernels = None     # SimpleNamespace(pairs=..., gather=...), once built
-build_route = None  # "cpp_extension" or "ctypes", once built
-
-
-def _build_cpp_extension():
-    from torch.utils import cpp_extension
-    ext = cpp_extension.load(
-        name="sha256_kernels_ext",
-        sources=[*KERNEL_SOURCES, BINDING_SOURCE],
-        build_directory=BUILD_DIR,
-        extra_cuda_cflags=ARCH_FLAGS,
-        verbose=False)
-    return SimpleNamespace(pairs=ext.sha256_pairs, gather=ext.sha256_gather)
-
-
-def _nvcc(nvcc, args):
-    return subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", *args],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-
-
-def _wait(proc):
-    _out, err = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
-
-
-def _build_ctypes():
-    from torch.utils import cpp_extension
-    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda",
-                        "bin", "nvcc")
-    objects = [os.path.join(BUILD_DIR, os.path.basename(src) + ".o")
-               for src in KERNEL_SOURCES]
-    compiles = [_nvcc(nvcc, ["-c", "-Xcompiler", "-fPIC", "-o", obj, src])
-                for src, obj in zip(KERNEL_SOURCES, objects)]
-    for proc in compiles:
-        _wait(proc)
-    lib_path = os.path.join(BUILD_DIR, "libsha256_kernels.so")
-    _wait(_nvcc(nvcc, ["-shared", "-o", lib_path, *objects]))
-    lib = ctypes.CDLL(lib_path)
-    pairs_fn = lib.sha256_pairs_launch
-    pairs_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                         ctypes.c_void_p]
-    pairs_fn.restype = ctypes.c_int
-    gather_fn = lib.sha256_gather_launch
-    gather_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    gather_fn.restype = ctypes.c_int
-
-    def check(name, rc):
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-    def pairs(chunks, out):
-        stream = torch.cuda.current_stream(chunks.device).cuda_stream
-        check("sha256_pairs", pairs_fn(chunks.data_ptr(), out.data_ptr(),
-                                       out.shape[0], stream))
-
-    def gather(pool, idx_l, idx_r, out_offset):
-        stream = torch.cuda.current_stream(pool.device).cuda_stream
-        check("sha256_gather", gather_fn(
-            pool.data_ptr(), idx_l.data_ptr(), idx_r.data_ptr(), out_offset,
-            idx_l.shape[0], stream))
-    return SimpleNamespace(pairs=pairs, gather=gather)
-
-
-def build():
-    """Build both kernels (once per process) and return their launchers,
-    `.pairs(chunks, out)` and `.gather(pool, idx_l, idx_r, out_offset)`."""
-    global _kernels, build_route
-    if _kernels is None:
-        from torch.utils import cpp_extension
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        if cpp_extension.is_ninja_available():
-            _kernels, build_route = _build_cpp_extension(), "cpp_extension"
-        else:
-            _kernels, build_route = _build_ctypes(), "ctypes"
-    return _kernels
-
-
-def _require_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "the port hashes on the CUDA card by default and none is "
-            "available; call consensus_specs_tpu_torch.set_device('cpu') "
-            "to hash with the plain torch version on the host")
-    return device
+CORE_SOURCE = os.path.join(cuda_build.CSRC, "sha256_core.cuh")
 
 
 def hash_pairs_cuda(chunks: torch.Tensor) -> torch.Tensor:
@@ -157,7 +51,7 @@ def hash_pairs_cuda(chunks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chunks on unsupported device {chunks.device}")
     if chunks.data_ptr() % 16:
         raise ValueError("chunks must be 16-byte aligned on the card")
-    kernels = build()
+    kernels = cuda_build.build()
     out = torch.empty((chunks.shape[0] // 2, 8), dtype=torch.int32,
                       device=chunks.device)
     if out.shape[0]:
@@ -210,7 +104,7 @@ def hash_gather_pairs_cuda(pool: torch.Tensor, idx_l: torch.Tensor,
         raise ValueError(f"pool on unsupported device {pool.device}")
     if pool.data_ptr() % 16:
         raise ValueError("pool must be 16-byte aligned on the card")
-    kernels = build()
+    kernels = cuda_build.build()
     if n:
         kernels.gather(pool, idx_l, idx_r, int(out_offset))
         hash_gather_pairs_cuda.launches += 1
@@ -234,7 +128,7 @@ def hash_level_cuda(data: bytes, device) -> bytes:
     """Bulk level hasher for ssz.merkle: 2N concatenated chunks -> N parents,
     hashed on `device`."""
     words = sha256.words_from_numpy(sha256.bytes_to_words(data),
-                                    _require_device(device))
+                                    cuda_build.require_device(device))
     return sha256.words_to_bytes(hash_pairs_cuda(words))
 
 
@@ -246,6 +140,6 @@ def merkle_root_cuda(data: bytes, device) -> bytes:
     n = words.shape[0]
     if n == 0 or n & (n - 1):
         raise ValueError(f"chunk count {n} is not a power of two")
-    level = sha256.words_from_numpy(words, _require_device(device))
+    level = sha256.words_from_numpy(words, cuda_build.require_device(device))
     root = merkle_tree_root_cuda(level, n.bit_length() - 1)
     return sha256.words_to_bytes(root[None])

@@ -18,7 +18,18 @@ A slim copy of consensus_specs_tpu/sigpipe/metrics.py: one module-global
   `merkle_sibling_uploads_skipped` (literals found already in the device
   pool);
 - `merkle_cache_builds`, `merkle_cached_roots`, `merkle_guard_samples` and
-  `merkle_guard_mismatches`.
+  `merkle_guard_mismatches`;
+
+and the calls of the fused epoch engine (specs/epoch_fast.py):
+
+- `epoch_sweep_dispatches`: one per fused `process_epoch` (one
+  `ops.epoch_sweep.run_sweep`: one upload, one launch sequence, one
+  download);
+- `epoch_writeback_elems`: balances and effective balances the epoch wrote
+  back;
+- `epoch_guard_samples` and `epoch_guard_mismatches`: epochs whose lanes
+  the differential guard recomputed with the plain version on the host,
+  and those that disagreed (a mismatch also raises).
 
 The reference routes every call through a per-node context and a named
 lock registry; the port keeps one registry behind one plain lock.

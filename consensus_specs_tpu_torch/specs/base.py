@@ -23,6 +23,8 @@ class BaseSpec:
         # preset values become plain attributes (compile-time tier)
         for k, v in self.preset.items():
             setattr(self, k, v)
+        # memoized pure accessors of this spec instance (the shuffle LRU)
+        self._caches: dict = {}
         self._build_constants()
         self._build_types()
 

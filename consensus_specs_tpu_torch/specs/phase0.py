@@ -2,13 +2,17 @@
 
 Counterpart of consensus_specs_tpu/specs/phase0.py, which implements the
 consensus-specs phase0 rules (specs/phase0/beacon-chain.md) function by
-function.  This slice ports the constants, the SSZ containers, the math
-helpers, the predicates and accessors that need neither shuffling nor BLS,
-and the per-slot transition (`process_slots` / `process_slot`), whose state
-root is the port's main path; `process_slots` tracks the state for
-incremental merkleization as the reference does (ssz/incremental.py).  Block processing, the fork-choice and
-validator-duty mixins, shuffling and BLS come with later slices of the port
-(ROADMAP.md); `process_epoch` raises until the epoch slice lands.
+function.  Ported so far: the constants, the SSZ containers, the math
+helpers, the predicates, the shuffle and committee accessors, the mutators,
+the per-slot transition (`process_slots` / `process_slot`), whose state root
+is the port's main path, and epoch processing.  `process_slots` tracks the
+state for incremental merkleization as the reference does
+(ssz/incremental.py).  `process_epoch` runs the fused engine
+(specs/epoch_fast.py: one `ops.epoch_sweep` dispatch, on the CUDA kernel on
+the card) and then the cheap tail resets; inside `epoch_fast.scalar_epoch()`
+it runs the reference-shaped scalar pass list instead.  Block processing,
+the fork-choice and validator-duty mixins, proposer selection and BLS come
+with later slices of the port (ROADMAP.md).
 
 NOTE: no `from __future__ import annotations` here — SSZ Container fields
 are declared via class annotations and must stay live types (PEP 563 would
@@ -307,6 +311,47 @@ class Phase0Spec(BaseSpec):
     # ------------------------------------------------------------------
     # misc computations (beacon-chain.md "Misc" helpers)
     # ------------------------------------------------------------------
+    def compute_shuffled_index(self, index: int, index_count: int, seed) -> int:
+        """Swap-or-not shuffle, SHUFFLE_ROUND_COUNT rounds."""
+        assert index < index_count
+        for current_round in range(self.SHUFFLE_ROUND_COUNT):
+            pivot = bytes_to_uint64(self.hash(
+                bytes(seed) + uint_to_bytes(uint8(current_round)))[0:8]) % index_count
+            flip = (pivot + index_count - index) % index_count
+            position = max(index, flip)
+            source = self.hash(
+                bytes(seed) + uint_to_bytes(uint8(current_round))
+                + uint_to_bytes(uint32(position // 256)))
+            byte_val = source[(position % 256) // 8]
+            bit = (byte_val >> (position % 8)) % 2
+            index = flip if bit else index
+        return uint64(index)
+
+    _SHUFFLE_CACHE_SIZE = 8
+
+    def _shuffle_permutation(self, seed, index_count: int):
+        """Full swap-or-not permutation for (seed, n), LRU-cached per spec
+        instance (the batched counterpart of the consensus-specs per-index
+        LRU).  Bounded: a fresh seed per epoch would otherwise grow ~8n
+        bytes per epoch forever."""
+        from .shuffle import shuffle_permutation
+        cache = self._caches.setdefault("shuffle_perm_lru", {})
+        key = (bytes(seed), int(index_count))
+        if key not in cache:
+            if len(cache) >= self._SHUFFLE_CACHE_SIZE:
+                cache.pop(next(iter(cache)))
+            cache[key] = shuffle_permutation(
+                bytes(seed), int(index_count), self.SHUFFLE_ROUND_COUNT)
+        else:
+            cache[key] = cache.pop(key)   # refresh LRU order
+        return cache[key]
+
+    def compute_committee(self, indices, seed, index: int, count: int):
+        start = len(indices) * index // count
+        end = len(indices) * (index + 1) // count
+        perm = self._shuffle_permutation(seed, len(indices))
+        return [indices[int(perm[i])] for i in range(start, end)]
+
     def compute_epoch_at_slot(self, slot) -> int:
         return uint64(slot // self.SLOTS_PER_EPOCH)
 
@@ -399,6 +444,15 @@ class Phase0Spec(BaseSpec):
             self.MAX_COMMITTEES_PER_SLOT,
             active // self.SLOTS_PER_EPOCH // self.TARGET_COMMITTEE_SIZE)))
 
+    def get_beacon_committee(self, state, slot, index):
+        epoch = self.compute_epoch_at_slot(slot)
+        committees_per_slot = self.get_committee_count_per_slot(state, epoch)
+        return self.compute_committee(
+            indices=self.get_active_validator_indices(state, epoch),
+            seed=self.get_seed(state, epoch, self.DOMAIN_BEACON_ATTESTER),
+            index=(slot % self.SLOTS_PER_EPOCH) * committees_per_slot + index,
+            count=committees_per_slot * self.SLOTS_PER_EPOCH)
+
     def get_total_balance(self, state, indices) -> int:
         return uint64(max(
             self.EFFECTIVE_BALANCE_INCREMENT,
@@ -415,6 +469,39 @@ class Phase0Spec(BaseSpec):
                         else state.fork.current_version)
         return self.compute_domain(domain_type, fork_version,
                                    state.genesis_validators_root)
+
+    def get_attesting_indices(self, state, attestation):
+        committee = self.get_beacon_committee(
+            state, attestation.data.slot, attestation.data.index)
+        return set(index for i, index in enumerate(committee)
+                   if attestation.aggregation_bits[i])
+
+    # ------------------------------------------------------------------
+    # mutators (beacon-chain.md "Beacon state mutators")
+    # ------------------------------------------------------------------
+    def increase_balance(self, state, index, delta) -> None:
+        state.balances[index] = uint64(state.balances[index] + delta)
+
+    def decrease_balance(self, state, index, delta) -> None:
+        bal = state.balances[index]
+        state.balances[index] = uint64(0 if delta > bal else bal - delta)
+
+    def initiate_validator_exit(self, state, index) -> None:
+        validator = state.validators[index]
+        if validator.exit_epoch != self.FAR_FUTURE_EPOCH:
+            return
+        exit_epochs = [int(v.exit_epoch) for v in state.validators
+                       if v.exit_epoch != self.FAR_FUTURE_EPOCH]
+        exit_queue_epoch = max(exit_epochs + [int(
+            self.compute_activation_exit_epoch(self.get_current_epoch(state)))])
+        exit_queue_churn = len([v for v in state.validators
+                                if v.exit_epoch == exit_queue_epoch])
+        if exit_queue_churn >= self.get_validator_churn_limit(state):
+            exit_queue_epoch += 1
+        validator.exit_epoch = uint64(exit_queue_epoch)
+        validator.withdrawable_epoch = uint64(
+            validator.exit_epoch
+            + self.config.MIN_VALIDATOR_WITHDRAWABILITY_DELAY)
 
     # ------------------------------------------------------------------
     # state transition (beacon-chain.md "Beacon chain state transition")
@@ -441,7 +528,343 @@ class Phase0Spec(BaseSpec):
         state.block_roots[state.slot % self.SLOTS_PER_HISTORICAL_ROOT] = \
             previous_block_root
 
+    # ------------------------------------------------------------------
+    # epoch processing (beacon-chain.md "Epoch processing")
+    # ------------------------------------------------------------------
     def process_epoch(self, state) -> None:
-        raise NotImplementedError(
-            "epoch processing is not ported yet: it comes with the epoch "
-            "slice (ROADMAP.md queue A item 3, ops/epoch_sweep.py)")
+        from . import epoch_fast
+        if epoch_fast.fused_epoch(self, state):
+            # the fused ONE-dispatch sweep handled justification through
+            # the effective-balance update; only the cheap tail resets
+            # remain (eth1_data_reset commutes past the sweep: it clears
+            # vote bookkeeping no fused pass reads or writes)
+            self.process_eth1_data_reset(state)
+            self.process_slashings_reset(state)
+            self.process_randao_mixes_reset(state)
+            self.process_historical_roots_update(state)
+            self.process_participation_record_updates(state)
+            return
+        self.process_justification_and_finalization(state)
+        self.process_rewards_and_penalties(state)
+        self.process_registry_updates(state)
+        self.process_slashings(state)
+        self.process_eth1_data_reset(state)
+        self.process_effective_balance_updates(state)
+        self.process_slashings_reset(state)
+        self.process_randao_mixes_reset(state)
+        self.process_historical_roots_update(state)
+        self.process_participation_record_updates(state)
+
+    # -- attestation matching helpers
+    def get_matching_source_attestations(self, state, epoch):
+        assert epoch in (self.get_previous_epoch(state),
+                         self.get_current_epoch(state))
+        return (state.current_epoch_attestations
+                if epoch == self.get_current_epoch(state)
+                else state.previous_epoch_attestations)
+
+    def get_matching_target_attestations(self, state, epoch):
+        return [a for a in self.get_matching_source_attestations(state, epoch)
+                if a.data.target.root == self.get_block_root(state, epoch)]
+
+    def get_matching_head_attestations(self, state, epoch):
+        return [a for a in self.get_matching_target_attestations(state, epoch)
+                if a.data.beacon_block_root
+                == self.get_block_root_at_slot(state, a.data.slot)]
+
+    def get_unslashed_attesting_indices(self, state, attestations):
+        output = set()
+        for a in attestations:
+            output |= self.get_attesting_indices(state, a)
+        return set(filter(lambda i: not state.validators[i].slashed, output))
+
+    def get_attesting_balance(self, state, attestations) -> int:
+        return self.get_total_balance(
+            state, self.get_unslashed_attesting_indices(state, attestations))
+
+    def process_justification_and_finalization(self, state) -> None:
+        # no processing within the first two epochs
+        if self.get_current_epoch(state) <= self.GENESIS_EPOCH + 1:
+            return
+        previous_attestations = self.get_matching_target_attestations(
+            state, self.get_previous_epoch(state))
+        current_attestations = self.get_matching_target_attestations(
+            state, self.get_current_epoch(state))
+        total_active_balance = self.get_total_active_balance(state)
+        previous_target_balance = self.get_attesting_balance(
+            state, previous_attestations)
+        current_target_balance = self.get_attesting_balance(
+            state, current_attestations)
+        self.weigh_justification_and_finalization(
+            state, total_active_balance,
+            previous_target_balance, current_target_balance)
+
+    def weigh_justification_and_finalization(self, state, total_active_balance,
+                                             previous_epoch_target_balance,
+                                             current_epoch_target_balance):
+        previous_epoch = self.get_previous_epoch(state)
+        current_epoch = self.get_current_epoch(state)
+        old_previous_justified = state.previous_justified_checkpoint
+        old_current_justified = state.current_justified_checkpoint
+
+        # process justifications
+        state.previous_justified_checkpoint = state.current_justified_checkpoint
+        bits = state.justification_bits
+        for i in range(len(bits) - 1, 0, -1):
+            bits[i] = bits[i - 1]
+        bits[0] = False
+        if previous_epoch_target_balance * 3 >= total_active_balance * 2:
+            state.current_justified_checkpoint = self.Checkpoint(
+                epoch=previous_epoch,
+                root=self.get_block_root(state, previous_epoch))
+            bits[1] = True
+        if current_epoch_target_balance * 3 >= total_active_balance * 2:
+            state.current_justified_checkpoint = self.Checkpoint(
+                epoch=current_epoch,
+                root=self.get_block_root(state, current_epoch))
+            bits[0] = True
+
+        # process finalizations
+        # 2nd/3rd/4th most recent epochs justified, 2nd is source
+        if all(bits[1:4]) and old_previous_justified.epoch + 3 == current_epoch:
+            state.finalized_checkpoint = old_previous_justified
+        if all(bits[1:3]) and old_previous_justified.epoch + 2 == current_epoch:
+            state.finalized_checkpoint = old_previous_justified
+        if all(bits[0:3]) and old_current_justified.epoch + 2 == current_epoch:
+            state.finalized_checkpoint = old_current_justified
+        if all(bits[0:2]) and old_current_justified.epoch + 1 == current_epoch:
+            state.finalized_checkpoint = old_current_justified
+
+    # -- rewards & penalties
+    def get_base_reward(self, state, index) -> int:
+        total_balance = self.get_total_active_balance(state)
+        effective_balance = state.validators[index].effective_balance
+        return uint64(effective_balance * self.BASE_REWARD_FACTOR
+                      // integer_squareroot(total_balance)
+                      // self.BASE_REWARDS_PER_EPOCH)
+
+    def get_proposer_reward(self, state, attesting_index) -> int:
+        return uint64(self.get_base_reward(state, attesting_index)
+                      // self.PROPOSER_REWARD_QUOTIENT)
+
+    def get_finality_delay(self, state) -> int:
+        return uint64(self.get_previous_epoch(state)
+                      - state.finalized_checkpoint.epoch)
+
+    def is_in_inactivity_leak(self, state) -> bool:
+        return self.get_finality_delay(state) \
+            > self.MIN_EPOCHS_TO_INACTIVITY_PENALTY
+
+    def get_eligible_validator_indices(self, state):
+        previous_epoch = self.get_previous_epoch(state)
+        return [uint64(index) for index, v in enumerate(state.validators)
+                if self.is_active_validator(v, previous_epoch)
+                or (v.slashed and previous_epoch + 1 < v.withdrawable_epoch)]
+
+    def get_attestation_component_deltas(self, state, attestations):
+        """Helper for source/target/head reward components."""
+        n = len(state.validators)
+        rewards = [uint64(0)] * n
+        penalties = [uint64(0)] * n
+        total_balance = self.get_total_active_balance(state)
+        unslashed_attesting_indices = self.get_unslashed_attesting_indices(
+            state, attestations)
+        attesting_balance = self.get_total_balance(
+            state, unslashed_attesting_indices)
+        for index in self.get_eligible_validator_indices(state):
+            if index in unslashed_attesting_indices:
+                increment = self.EFFECTIVE_BALANCE_INCREMENT
+                if self.is_in_inactivity_leak(state):
+                    # optimal participation receives full base reward
+                    # compensation here; the inactivity penalty cancels it
+                    rewards[index] = uint64(
+                        rewards[index] + self.get_base_reward(state, index))
+                else:
+                    reward_numerator = (self.get_base_reward(state, index)
+                                        * (attesting_balance // increment))
+                    rewards[index] = uint64(
+                        rewards[index]
+                        + reward_numerator // (total_balance // increment))
+            else:
+                penalties[index] = uint64(
+                    penalties[index] + self.get_base_reward(state, index))
+        return rewards, penalties
+
+    def get_source_deltas(self, state):
+        return self.get_attestation_component_deltas(
+            state, self.get_matching_source_attestations(
+                state, self.get_previous_epoch(state)))
+
+    def get_target_deltas(self, state):
+        return self.get_attestation_component_deltas(
+            state, self.get_matching_target_attestations(
+                state, self.get_previous_epoch(state)))
+
+    def get_head_deltas(self, state):
+        return self.get_attestation_component_deltas(
+            state, self.get_matching_head_attestations(
+                state, self.get_previous_epoch(state)))
+
+    def get_inclusion_delay_deltas(self, state):
+        n = len(state.validators)
+        rewards = [uint64(0)] * n
+        matching_source = self.get_matching_source_attestations(
+            state, self.get_previous_epoch(state))
+        for index in self.get_unslashed_attesting_indices(
+                state, matching_source):
+            attestation = min(
+                (a for a in matching_source
+                 if index in self.get_attesting_indices(state, a)),
+                key=lambda a: a.inclusion_delay)
+            rewards[attestation.proposer_index] = uint64(
+                rewards[attestation.proposer_index]
+                + self.get_proposer_reward(state, index))
+            max_attester_reward = uint64(
+                self.get_base_reward(state, index)
+                - self.get_proposer_reward(state, index))
+            rewards[index] = uint64(
+                rewards[index]
+                + max_attester_reward // attestation.inclusion_delay)
+        return rewards, [uint64(0)] * n
+
+    def get_inactivity_penalty_deltas(self, state):
+        n = len(state.validators)
+        penalties = [uint64(0)] * n
+        if self.is_in_inactivity_leak(state):
+            matching_target_attestations = \
+                self.get_matching_target_attestations(
+                    state, self.get_previous_epoch(state))
+            matching_target_attesting_indices = \
+                self.get_unslashed_attesting_indices(
+                    state, matching_target_attestations)
+            for index in self.get_eligible_validator_indices(state):
+                base_reward = self.get_base_reward(state, index)
+                penalties[index] = uint64(
+                    penalties[index]
+                    + self.BASE_REWARDS_PER_EPOCH * base_reward
+                    - self.get_proposer_reward(state, index))
+                if index not in matching_target_attesting_indices:
+                    effective_balance = \
+                        state.validators[index].effective_balance
+                    penalties[index] = uint64(
+                        penalties[index]
+                        + effective_balance * self.get_finality_delay(state)
+                        // self.INACTIVITY_PENALTY_QUOTIENT)
+        return [uint64(0)] * n, penalties
+
+    def get_attestation_deltas(self, state):
+        source_rewards, source_penalties = self.get_source_deltas(state)
+        target_rewards, target_penalties = self.get_target_deltas(state)
+        head_rewards, head_penalties = self.get_head_deltas(state)
+        inclusion_rewards, _ = self.get_inclusion_delay_deltas(state)
+        _, inactivity_penalties = self.get_inactivity_penalty_deltas(state)
+        rewards = [uint64(a + b + c + d) for a, b, c, d in zip(
+            source_rewards, target_rewards, head_rewards, inclusion_rewards)]
+        penalties = [uint64(a + b + c + d) for a, b, c, d in zip(
+            source_penalties, target_penalties, head_penalties,
+            inactivity_penalties)]
+        return rewards, penalties
+
+    def process_rewards_and_penalties(self, state) -> None:
+        # no rewards in GENESIS_EPOCH (no previous epoch to attest to)
+        if self.get_current_epoch(state) == self.GENESIS_EPOCH:
+            return
+        rewards, penalties = self.get_attestation_deltas(state)
+        for index in range(len(state.validators)):
+            self.increase_balance(state, index, rewards[index])
+            self.decrease_balance(state, index, penalties[index])
+
+    # -- registry & leftovers
+    def process_registry_updates(self, state) -> None:
+        # eligibility and ejections
+        for index, validator in enumerate(state.validators):
+            if self.is_eligible_for_activation_queue(validator):
+                validator.activation_eligibility_epoch = uint64(
+                    self.get_current_epoch(state) + 1)
+            if (self.is_active_validator(validator,
+                                         self.get_current_epoch(state))
+                    and validator.effective_balance
+                    <= self.config.EJECTION_BALANCE):
+                self.initiate_validator_exit(state, index)
+
+        # dequeue activations up to churn limit, ordered by eligibility epoch
+        activation_queue = sorted(
+            [index for index, validator in enumerate(state.validators)
+             if self.is_eligible_for_activation(state, validator)],
+            key=lambda index: (
+                int(state.validators[index].activation_eligibility_epoch),
+                index))
+        for index in activation_queue[:self.get_validator_churn_limit(state)]:
+            validator = state.validators[index]
+            validator.activation_epoch = self.compute_activation_exit_epoch(
+                self.get_current_epoch(state))
+
+    def process_slashings(self, state) -> None:
+        epoch = self.get_current_epoch(state)
+        total_balance = self.get_total_active_balance(state)
+        adjusted_total_slashing_balance = min(
+            sum(int(x) for x in state.slashings)
+            * self.proportional_slashing_multiplier(),
+            int(total_balance))
+        for index, validator in enumerate(state.validators):
+            if (validator.slashed
+                    and epoch + self.EPOCHS_PER_SLASHINGS_VECTOR // 2
+                    == validator.withdrawable_epoch):
+                increment = self.EFFECTIVE_BALANCE_INCREMENT
+                penalty_numerator = (validator.effective_balance // increment
+                                     * adjusted_total_slashing_balance)
+                penalty = penalty_numerator // total_balance * increment
+                self.decrease_balance(state, index, uint64(penalty))
+
+    def proportional_slashing_multiplier(self) -> int:
+        return self.PROPORTIONAL_SLASHING_MULTIPLIER
+
+    def process_eth1_data_reset(self, state) -> None:
+        next_epoch = uint64(self.get_current_epoch(state) + 1)
+        if next_epoch % self.EPOCHS_PER_ETH1_VOTING_PERIOD == 0:
+            state.eth1_data_votes = type(state.eth1_data_votes)()
+
+    def process_effective_balance_updates(self, state) -> None:
+        for index, validator in enumerate(state.validators):
+            balance = state.balances[index]
+            hysteresis_increment = uint64(
+                self.EFFECTIVE_BALANCE_INCREMENT // self.HYSTERESIS_QUOTIENT)
+            downward_threshold = uint64(
+                hysteresis_increment * self.HYSTERESIS_DOWNWARD_MULTIPLIER)
+            upward_threshold = uint64(
+                hysteresis_increment * self.HYSTERESIS_UPWARD_MULTIPLIER)
+            if (balance + downward_threshold < validator.effective_balance
+                    or validator.effective_balance + upward_threshold
+                    < balance):
+                validator.effective_balance = uint64(min(
+                    int(balance)
+                    - int(balance) % self.EFFECTIVE_BALANCE_INCREMENT,
+                    self.max_effective_balance_for_validator(validator)))
+
+    def max_effective_balance_for_validator(self, validator) -> int:
+        return self.MAX_EFFECTIVE_BALANCE
+
+    def process_slashings_reset(self, state) -> None:
+        next_epoch = uint64(self.get_current_epoch(state) + 1)
+        state.slashings[next_epoch % self.EPOCHS_PER_SLASHINGS_VECTOR] = \
+            uint64(0)
+
+    def process_randao_mixes_reset(self, state) -> None:
+        current_epoch = self.get_current_epoch(state)
+        next_epoch = uint64(current_epoch + 1)
+        state.randao_mixes[next_epoch % self.EPOCHS_PER_HISTORICAL_VECTOR] = \
+            self.get_randao_mix(state, current_epoch)
+
+    def process_historical_roots_update(self, state) -> None:
+        next_epoch = uint64(self.get_current_epoch(state) + 1)
+        if next_epoch % (self.SLOTS_PER_HISTORICAL_ROOT
+                         // self.SLOTS_PER_EPOCH) == 0:
+            historical_batch = self.HistoricalBatch(
+                block_roots=list(state.block_roots),
+                state_roots=list(state.state_roots))
+            state.historical_roots.append(hash_tree_root(historical_batch))
+
+    def process_participation_record_updates(self, state) -> None:
+        state.previous_epoch_attestations = state.current_epoch_attestations
+        state.current_epoch_attestations = \
+            type(state.current_epoch_attestations)()

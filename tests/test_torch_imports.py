@@ -32,12 +32,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import sys\n"
         "import consensus_specs_tpu_torch, consensus_specs_tpu_torch.convert\n"
         "import consensus_specs_tpu_torch.ops.sha256_cuda\n"
+        "import consensus_specs_tpu_torch.ops.epoch_sweep_cuda\n"
+        "import consensus_specs_tpu_torch.specs.epoch_fast\n"
+        "from consensus_specs_tpu_torch.ops import cuda_build\n"
         "from consensus_specs_tpu_torch.specs import get_spec\n"
         "get_spec('phase0', 'minimal')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'consensus_specs_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(bad, cuda_build.build_route)\n"
+        "sys.exit(1 if bad or cuda_build._kernels is not None else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

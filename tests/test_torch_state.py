@@ -4,7 +4,9 @@ A mainnet-preset phase0 BeaconState with 4,096 validators is built from a
 seed in the JAX package and carried across as SSZ bytes.  The bulk and
 subtree thresholds are lowered so that the port's device hashers, which on
 the CPU run the plain torch SHA-256, take the big levels; the state root and
-three `process_slots` steps inside one epoch must match byte for byte.
+three `process_slots` steps inside one epoch must match byte for byte, and
+a minimal-preset state must cross its epoch boundary with the reference's
+root.
 """
 import numpy as np
 import pytest
@@ -119,9 +121,17 @@ def test_incremental_process_slots_match_jax():
 
 
 def test_process_slots_stops_at_the_epoch_slice():
-    """An epoch boundary needs the epoch slice, which is not ported: the
-    port raises rather than computing an epoch some other way."""
+    """The minimal-preset state of the slice-1 check, which raised at its
+    epoch boundary before the epoch slice was ported, now crosses it: the
+    port's process_slots runs process_epoch at the last slot of epoch 0
+    and gives the JAX package's bytes and root."""
     spec = get_spec("phase0", "minimal")
     state = spec.BeaconState(slot=spec.SLOTS_PER_EPOCH - 1)
-    with pytest.raises(NotImplementedError, match="epoch"):
-        spec.process_slots(state, spec.SLOTS_PER_EPOCH)
+    ref_spec = reference_spec("phase0", "minimal")
+    ref = ref_spec.BeaconState.decode_bytes(state.encode_bytes())
+    spec.process_slots(state, spec.SLOTS_PER_EPOCH)
+    ref_spec.process_slots(ref, ref_spec.SLOTS_PER_EPOCH)
+    assert state.slot == spec.SLOTS_PER_EPOCH
+    assert state.encode_bytes() == ref.encode_bytes()
+    assert bytes(spec.hash_tree_root(state)) == \
+        bytes(ref_spec.hash_tree_root(ref))
