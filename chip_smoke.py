@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card, the per-slot BeaconState root
-(slice 1), incremental re-roots (slice 2) and the phase0 epoch transition
-(slice 3), and holds every kernel of those paths against its plain PyTorch
+Drives the port's four paths on the card, the per-slot BeaconState root
+(slice 1), incremental re-roots (slice 2), the phase0 epoch transition
+(slice 3) and phase0 block processing with every signature checked (slice
+4), and holds every kernel of those paths against its plain PyTorch
 version:
 
 1. device: requires a CUDA card and prints its name and power limit;
-2. build: builds the three kernels, SHA-256 pair-hash and gather-hash and
-   the epoch sweep, from the repository's sources;
+2. build: builds the six kernels, SHA-256 pair-hash and gather-hash, the
+   epoch sweep and the BLS12-381 pairing, G2 ladder and field kernels, from
+   the repository's sources, and prints the BLS kernels' registers and
+   stack (cuobjdump);
 3. kernel: the pair-hash kernel against the plain torch version on the card,
    bit for bit, at 1, 255, 256, 257, 65,537, 2**17 and 2**20 pairs, with rows
    checked against hashlib, and the times of kernel (replayed from a CUDA
@@ -40,7 +43,26 @@ version:
 8. epoch kernel: the epoch-sweep kernel against the plain torch version on
    the card, bit for bit on every output lane, for both families, with and
    without a leak, without rewards and with electra's slashings, at 1, 255,
-   257, 65,537, 2**18 and 2**20 lanes, and its times.
+   257, 65,537, 2**18 and 2**20 lanes, and its times;
+9. bls kernels: every op of the field kernel on 2**16 seeded elements, the
+   h_eff ladder on 1, 64 and 1,024 points, and the Miller values, products
+   and verdicts of a valid and an invalid check at k = 2, 129 and 1,024
+   pairs, each equal to the plain torch version on the card bit for bit;
+   the times of the main path's shapes (one check of two pairs, one
+   ladder, one affine normalization) from a CUDA graph, with the plain
+   version's times and the operation bounds;
+10. bls: seeded Verify (valid, tampered, wrong key, infinity),
+   FastAggregateVerify over a 128-key committee (valid, invalid) and
+   AggregateVerify over 8 messages on the shim's device backend, each
+   verdict equal to the native oracle's;
+11. block: `block_case`, the same seeded state at slot 97 with real keys
+   for its signers and a signed block at slot 98 (8 full-committee
+   attestations, a proposer and an attester slashing: 14 signature
+   checks), through `state_transition` with BLS on: the root must equal
+   the host oracle and the JAX package's (POST_BLOCK_ROOT_98), every check
+   must launch the ladder once and the pairing kernel's two launches once,
+   and a copy with a tampered first attestation must be rejected there;
+   prints each part's seconds.
 
 Each phase prints its seconds.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
@@ -49,19 +71,30 @@ failure raises and exits non-zero.  There is no CPU path.
 import hashlib
 import json
 import math
+import os
 import random
 import subprocess
 import time
+import traceback
 
 import numpy as np
 import torch
 
 import consensus_specs_tpu_torch as port
+from consensus_specs_tpu_torch.crypto import bls12_381
+from consensus_specs_tpu_torch.crypto import curve as cv
+from consensus_specs_tpu_torch.crypto.fields import R
+from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
+from consensus_specs_tpu_torch.crypto.fields import Q
 from consensus_specs_tpu_torch.ops import (
-    cuda_build, epoch_sweep, epoch_sweep_cuda, sha256, sha256_cuda)
+    bls381_cuda, bls_cuda, cuda_build, curve_torch, epoch_sweep,
+    epoch_sweep_cuda, fq, pairing_torch, sha256, sha256_cuda)
+from consensus_specs_tpu_torch.ops import fq_tower as ft
 from consensus_specs_tpu_torch.sigpipe import METRICS
 from consensus_specs_tpu_torch.specs import epoch_fast, get_spec
-from consensus_specs_tpu_torch.ssz import incremental, merkle
+from consensus_specs_tpu_torch.ssz import incremental, merkle, uint64
+from consensus_specs_tpu_torch.ssz import uint_to_bytes
+from consensus_specs_tpu_torch.utils import bls
 
 SEED = 2026
 N_VALIDATORS = 1 << 18          # bench.py EPOCH_VALIDATORS
@@ -69,6 +102,9 @@ START_SLOT = 97                 # no epoch boundary up to slot 127
 END_SLOT = 99                   # the main path: two process_slot calls
 INC_END_SLOT = 101              # the incremental path: four
 EPOCH_SLOT = 127                # the epoch path: process_slots 127 -> 128
+BLOCK_SLOT = START_SLOT + 1     # the block path: a signed block at slot 98
+BLOCK_ATTESTATIONS = 8          # full committees of 128 at 262,144
+BLOCK_SK_BASE = 0x5EED2026      # the first signer's secret key
 # the post-state root at slot 101 of the seeded state, advanced with full
 # rebuilds (chip_smoke.py's four-slot main path before incremental re-roots)
 FULL_REBUILD_ROOT_101 = (
@@ -78,6 +114,11 @@ FULL_REBUILD_ROOT_101 = (
 # (scripts/torch_epoch_reference_root.py)
 POST_EPOCH_ROOT_128 = (
     "68891d02776f70579e92d08fa22c5e02bd4440b3f3761ca435846dc70d13f648")
+# the JAX package's root at slot 98 of block_case(spec, N_VALIDATORS) after
+# state_transition with its native BLS, on the CPU
+# (scripts/torch_block_reference_root.py)
+POST_BLOCK_ROOT_98 = (
+    "4322c9332ce7ca714a9f939d0e1fd1b0290e7627c31bd49195dc786320b0a135")
 KERNEL_SIZES = (1, 255, 256, 257, 65537, 1 << 17, 1 << 20)
 TIMED_SIZES = (1 << 17, 1 << 20)
 MAIN_PATH_PAIRS = 1 << 17       # the largest level of the main path
@@ -207,8 +248,35 @@ def device_phase():
 @phase("build")
 def build_phase():
     cuda_build.build()
-    print(f"sha256_pairs, sha256_gather and epoch_sweep built by "
-          f"{cuda_build.build_route} into {cuda_build.BUILD_DIR}")
+    print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_pairing, "
+          f"bls381_g2 and bls381_field built by {cuda_build.build_route} "
+          f"into {cuda_build.BUILD_DIR}")
+    print_resource_usage()
+
+
+def print_resource_usage():
+    """Registers, stack and local memory of the BLS kernels as cuobjdump
+    reads them from the built objects, and the resident threads an SM
+    that their registers allow (65,536 registers an SM)."""
+    from torch.utils import cpp_extension
+    tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
+                        "cuobjdump")
+    for name in ("bls381_pairing", "bls381_g2", "bls381_field"):
+        objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
+                if f.startswith(name) and f.endswith(".o")]
+        if not objs or not os.path.exists(tool):
+            print(f"{name}: no object or no cuobjdump to read its resources")
+            continue
+        out = subprocess.run(
+            [tool, "-res-usage", os.path.join(cuda_build.BUILD_DIR, objs[0])],
+            capture_output=True, text=True, timeout=120).stdout
+        for line in out.splitlines():
+            if "REG:" not in line:
+                continue
+            regs = int(line.split("REG:")[1].split()[0])
+            threads = 65536 // max(regs, 1) // 32 * 32
+            print(f"{name}: {line.strip()} -> at most {min(threads, 2048)} "
+                  f"resident threads an SM by registers")
 
 
 def bound(n_pairs, bytes_per_pair, n_sms, max_mhz):
@@ -377,6 +445,153 @@ def epoch_state(spec, n):
         attestation(cur_start + s, 0, True, True, delay=1)
         for s in (2, 7, 11, 20)]
     return state
+
+
+def consecutive_keys(count, base):
+    """`count` secret keys base, base + 1, ... and their compressed
+    pubkeys, each pubkey the previous one plus G (one point add a key, not
+    a scalar multiplication)."""
+    g = cv.g1_generator()
+    point = g * base
+    pubkeys = []
+    for _ in range(count):
+        pubkeys.append(cv.g1_to_bytes(point))
+        point = point + g
+    return [base + i for i in range(count)], pubkeys
+
+
+def _signing_root(spec, state, obj, domain_type, epoch):
+    return spec.compute_signing_root(
+        obj, spec.get_domain(state, domain_type, epoch))
+
+
+def block_case(spec, n, n_attestations=BLOCK_ATTESTATIONS):
+    """The block path's input: `seeded_state(spec, n)` at slot 97 with real
+    keys for its signers, and a signed block at slot 98 carrying
+    `n_attestations` full-committee attestations (of slot 97, and of the
+    slots below it where slot 97 has fewer committees), one proposer
+    slashing and one attester slashing (a double vote of [a, b] and
+    [b, c]: b is slashed).  That is n_attestations + 6 signature checks:
+    the block, its randao reveal, two slashed headers, two indexed
+    attestations and the attestations.
+
+    The signers (the proposer, the committees, the slashed proposer and
+    a, b, c) get consecutive secret keys; an aggregate signature is
+    Sign(sum of the signers' keys mod r, root).  The block's state root
+    comes from one state_transition of a copy with BLS off.  Returns
+    (pre-state, signed block, facts), facts holding the committees
+    (slot, index, size), the signers' count and `resign`, which signs a
+    block message with the proposer's key."""
+    state = seeded_state(spec, n)
+    rng = np.random.default_rng(SEED + 5)
+    spe = int(spec.SLOTS_PER_EPOCH)
+    epoch = START_SLOT // spe
+    active = list(range(n))               # every seeded validator is active
+    cps = max(1, min(int(spec.MAX_COMMITTEES_PER_SLOT),
+                     n // spe // int(spec.TARGET_COMMITTEE_SIZE)))
+    picks = [(slot, index) for slot in range(START_SLOT, START_SLOT - spe, -1)
+             for index in range(cps)][:n_attestations]
+    committees = {}
+    for slot, index in picks:
+        seed = spec.get_seed(state, slot // spe, spec.DOMAIN_BEACON_ATTESTER)
+        committees[(slot, index)] = [int(i) for i in spec.compute_committee(
+            active, seed, (slot % spe) * cps + index, cps * spe)]
+    proposer_seed = spec.hash(
+        bytes(spec.get_seed(state, epoch, spec.DOMAIN_BEACON_PROPOSER))
+        + uint_to_bytes(uint64(BLOCK_SLOT)))
+    proposer = int(spec.compute_proposer_index(state, active, proposer_seed))
+    busy = {proposer, *(i for c in committees.values() for i in c)}
+    free = [int(i) for i in rng.permutation(n) if int(i) not in busy]
+    slashed_proposer, a, b, c = free[:4]
+    signers = list(dict.fromkeys(
+        [proposer, slashed_proposer, a, b, c]
+        + [i for com in committees.values() for i in com]))
+    sks, pks = consecutive_keys(len(signers), BLOCK_SK_BASE)
+    sk_of = dict(zip(signers, sks))
+    for i, pk in zip(signers, pks):
+        state.validators[i].pubkey = pk
+
+    def sign(indices, root):
+        return bls12_381.Sign(sum(sk_of[i] for i in indices) % R, root)
+
+    attestations = []
+    for (slot, index), committee in committees.items():
+        ep = slot // spe
+        data = spec.AttestationData(
+            slot=slot, index=index,
+            beacon_block_root=state.block_roots[
+                slot % spec.SLOTS_PER_HISTORICAL_ROOT],
+            source=(state.current_justified_checkpoint if ep == epoch
+                    else state.previous_justified_checkpoint),
+            target=spec.Checkpoint(epoch=ep,
+                                   root=spec.get_block_root(state, ep)))
+        attestations.append(spec.Attestation(
+            aggregation_bits=[True] * len(committee), data=data,
+            signature=sign(committee, _signing_root(
+                spec, state, data, spec.DOMAIN_BEACON_ATTESTER, ep))))
+
+    headers = []
+    for state_root in (b"\x44" * 32, b"\x99" * 32):
+        header = spec.BeaconBlockHeader(
+            slot=START_SLOT, proposer_index=slashed_proposer,
+            parent_root=b"\x33" * 32, state_root=state_root,
+            body_root=b"\x55" * 32)
+        headers.append(spec.SignedBeaconBlockHeader(
+            message=header, signature=sign([slashed_proposer], _signing_root(
+                spec, state, header, spec.DOMAIN_BEACON_PROPOSER, epoch))))
+    indexed = []
+    for votes, head in (((a, b), b"\x01"), ((b, c), b"\x03")):
+        data = spec.AttestationData(
+            slot=START_SLOT - 1, index=0, beacon_block_root=head * 32,
+            source=state.current_justified_checkpoint,
+            target=spec.Checkpoint(epoch=epoch, root=b"\x02" * 32))
+        indexed.append(spec.IndexedAttestation(
+            attesting_indices=sorted(votes), data=data,
+            signature=sign(votes, _signing_root(
+                spec, state, data, spec.DOMAIN_BEACON_ATTESTER, epoch))))
+
+    header = state.latest_block_header.copy()
+    header.state_root = spec.hash_tree_root(state)
+    body = spec.BeaconBlockBody(
+        randao_reveal=sign([proposer], _signing_root(
+            spec, state, uint64(epoch), spec.DOMAIN_RANDAO, epoch)),
+        eth1_data=state.eth1_data,
+        proposer_slashings=[spec.ProposerSlashing(
+            signed_header_1=headers[0], signed_header_2=headers[1])],
+        attester_slashings=[spec.AttesterSlashing(
+            attestation_1=indexed[0], attestation_2=indexed[1])],
+        attestations=attestations)
+    block = spec.BeaconBlock(slot=BLOCK_SLOT, proposer_index=proposer,
+                             parent_root=spec.hash_tree_root(header),
+                             body=body)
+    post = state.copy()
+    saved = bls.bls_active
+    bls.bls_active = False
+    try:
+        spec.state_transition(post, spec.SignedBeaconBlock(message=block),
+                              validate_result=False)
+    finally:
+        bls.bls_active = saved
+    block.state_root = spec.hash_tree_root(post)
+
+    def resign(message):
+        return spec.SignedBeaconBlock(message=message, signature=sign(
+            [proposer], _signing_root(spec, state, message,
+                                      spec.DOMAIN_BEACON_PROPOSER, epoch)))
+    facts = dict(committees=[(s, i, len(c)) for (s, i), c in
+                             committees.items()],
+                 signers=len(signers), proposer=proposer, resign=resign)
+    return state, resign(block), facts
+
+
+def tampered_block(spec, signed_block, facts):
+    """The block with its first attestation's signature replaced by the
+    second's (a valid point, the wrong signature), signed again by the
+    proposer: state_transition must reject it at that attestation."""
+    message = signed_block.message.copy()
+    message.body.attestations[0].signature = \
+        message.body.attestations[1].signature
+    return facts["resign"](message)
 
 
 class TimedDeviceHashers:
@@ -989,6 +1204,476 @@ def epoch_kernel_phase(n_sms, max_mhz):
     return max_err, timed
 
 
+# ---------------------------------------------------------------------------
+# the BLS kernels, the BLS shim and the block path
+# ---------------------------------------------------------------------------
+
+# Fq products of the kernels' formulas (csrc/bls381.cuh), counted from
+# their code: the operation bound of a BLS launch is its products' CIOS
+# multiplies (MULS_PER_FQ_PRODUCT, each 32 x 32 -> 64-bit partial product
+# counted as two 32-bit multiplies, lo and hi, plus the 12 of m) at
+# INT_MULS_PER_SM_PER_CLOCK, the 32-bit integer multiply rate of compute
+# capability 9.0 (CUDA programming guide, arithmetic instruction table).
+MULS_PER_FQ_PRODUCT = 2 * 2 * 12 * 12 + 12
+INT_MULS_PER_SM_PER_CLOCK = 64
+_X_ONES = bin(pairing_torch.BLS_X_ABS)[3:].count("1")
+FQ_INV = 380 + bin(Q - 2)[3:].count("1")
+FQ2_INV = 4 + FQ_INV
+FQ6_INV = 33 + FQ2_INV
+FQ12_INV = 72 + FQ6_INV
+EXP_BY_X = 63 * 18 + _X_ONES * 54
+MILLER_PRODUCTS = 63 * (34 + 36 + 54) + _X_ONES * (43 + 54)
+FINAL_EXP_PRODUCTS = (FQ12_INV + 2 * 54 + 2 * 18) + 2 * 18 + 5 * EXP_BY_X \
+    + 10 * 54 + 6 * 18
+# products of one element of each field op (points: the generic add)
+FIELD_PRODUCTS = {
+    "fq_mul": 1, "fq_add": 0, "fq_sub": 0, "fq_neg": 0, "fq_inv": FQ_INV,
+    "fq2_mul": 3, "fq2_square": 2, "fq2_inv": FQ2_INV, "fq12_mul": 54,
+    "fq12_square": 36, "fq12_cyclotomic_square": 18, "fq12_frobenius1": 18,
+    "fq12_frobenius2": 36, "fq12_frobenius3": 54, "fq12_conj": 0,
+    "fq12_inv": FQ12_INV, "g1_add": 16, "g1_double": 7, "g2_add": 43,
+    "g2_double": 16}
+G2_DOUBLE_PRODUCTS, G2_ADD_PRODUCTS = 16, 43
+FIELD_ELEMENTS = 1 << 16
+# plain-version elements a call on the card, by element words (bounds the
+# plain products' float64 intermediates to a few GiB)
+FIELD_CHUNK = {12: 1 << 16, 24: 1 << 16, 36: 1 << 15, 72: 1 << 13,
+               144: 1 << 13}
+LADDER_SIZES = (1, 64, 1024)
+MILLER_SIZES = (2, 129, 1024)
+FAV_COMMITTEE = 128
+CARD = "cuda"                   # where the BLS phases put their tensors
+AV_MESSAGES = 8
+
+
+def op_bound(products, n_bytes, n_sms, max_mhz):
+    """(bound_ms, bound_by) of `products` Fq products moving n_bytes."""
+    op_ms = products * MULS_PER_FQ_PRODUCT / (
+        n_sms * INT_MULS_PER_SM_PER_CLOCK * max_mhz * 1e6) * 1e3
+    byte_ms = n_bytes / MEMORY_BYTES_PER_S * 1e3
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms
+            else "bytes")
+
+
+def _canonical_limbs(gen, shape):
+    """Seeded canonical Fq limbs (< q) on the card: 31 random 12-bit limbs
+    and a top limb below q's; the first rows are 0, 1 (Montgomery) and
+    q - 1."""
+    lo = torch.randint(0, 1 << 12, shape + (31,), generator=gen,
+                       dtype=torch.int64)
+    hi = torch.randint(0, Q >> 372, shape + (1,), generator=gen,
+                       dtype=torch.int64)
+    out = torch.cat([lo, hi], dim=-1)
+    flat = out.reshape(-1, 32)
+    flat[0] = 0
+    flat[1] = torch.from_numpy(fq.ONE_MONT_LIMBS)
+    flat[2] = torch.from_numpy(fq.Q_LIMBS) - torch.tensor([1] + [0] * 31)
+    return out.to(CARD)
+
+
+def _field_inputs(op, gen, n):
+    suffix, arity, _plain = bls381_cuda.FIELD_OPS[op]
+    a = _canonical_limbs(gen, (n,) + suffix[:-1])
+    b = _canonical_limbs(gen, (n,) + suffix[:-1]) if arity == 2 else None
+    if op.startswith("g"):
+        z = -2 if op.startswith("g1") else -3      # the Z coordinate
+        a.select(z, 2)[3] = 0                      # infinity on the left
+        if b is not None:
+            b.select(z, 2)[4] = 0                  # infinity on the right
+            b[5] = a[5]                            # equal: doubles
+            b[6] = a[6]
+            y = b[6].select(z, 1)                  # negated: infinity
+            y.copy_(bls381_cuda.FIELD_OPS["fq_neg"][2](y))
+    return a, b
+
+
+def _plain_chunked(plain, a, b):
+    chunk = FIELD_CHUNK[a[0].numel() // 32 * 12]
+    outs = []
+    for i in range(0, a.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        outs.append(plain(a[sl]) if b is None else plain(a[sl], b[sl]))
+    return torch.cat(outs)
+
+
+def _pairing_jobs(k, valid):
+    """One job of k pairs, as limb tensors on the card: P_i consecutive
+    multiples of G1, Q_i among four multiples of G2, and the last pair
+    (-(sum of s_i t_i) G1, G2) so that the product is one (or, invalid,
+    off by one)."""
+    g1, g2 = cv.g1_generator(), cv.g2_generator()
+    ts = [3, 5, 7, 11]
+    qs = [g2 * t for t in ts]
+    s0 = 1000003
+    p = g1 * s0
+    pairs, total = [], 0
+    for i in range(k - 1):
+        pairs.append((p, qs[i % 4]))
+        total += (s0 + i) * ts[i % 4]
+        p = p + g1
+    pairs.append((g1 * ((-total + (0 if valid else 1)) % R), g2))
+    xs1, ys1, xs2, ys2 = [], [], [], []
+    for p, q in pairs:
+        (x1, y1), (x2, y2) = p.affine(), q.affine()
+        xs1.append(x1.v)
+        ys1.append(y1.v)
+        xs2.append(x2)
+        ys2.append(y2)
+    return (fq.pack_mont(xs1, CARD), fq.pack_mont(ys1, CARD),
+            ft.fq2_pack_mont(xs2, CARD), ft.fq2_pack_mont(ys2, CARD))
+
+
+def _ladder_points(n):
+    """n G2 points in Jacobian form on the card: a hashed point and its
+    successors by G2 (not in the subgroup: the ladder does not care)."""
+    u0, u1 = h2c.hash_to_field_fq2(b"chip smoke ladder", 2, h2c.DST_G2)
+    p = h2c.iso_map(*h2c.sswu_map(u0)) + h2c.iso_map(*h2c.sswu_map(u1))
+    g2 = cv.g2_generator()
+    pts = []
+    for _ in range(n):
+        pts.append(p)
+        p = p + g2
+    return curve_torch.g2_pack(pts, CARD)
+
+
+def _max_err(got, want):
+    if isinstance(got, (tuple, list)):
+        return max(_max_err(g, w) for g, w in zip(got, want))
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+@phase("bls kernels")
+def bls_kernels_phase(n_sms, max_mhz):
+    """The three BLS kernels against their plain torch versions on the
+    card, bit for bit: every field op on 2^16 seeded elements, the h_eff
+    ladder on 1, 64 and 1,024 points, and Miller products and verdicts of
+    a valid and an invalid check at k = 2, 129 and 1,024 pairs; then the
+    times of the main path's shapes from a CUDA graph, with the plain
+    version's times and the operation bounds."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    max_err = {"bls381_field": 0, "bls381_g2": 0, "bls381_pairing": 0}
+    for op, (suffix, arity, plain) in bls381_cuda.FIELD_OPS.items():
+        a, b = _field_inputs(op, gen, FIELD_ELEMENTS)
+        got = bls381_cuda.field_op(op, a, b)
+        want = _plain_chunked(plain, a, b)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err["bls381_field"] = max(max_err["bls381_field"], err)
+        check(err == 0, f"bls381_field {op} != plain at {FIELD_ELEMENTS} "
+              f"elements (max |diff| {err})")
+        kernel_ms = graph_ms(lambda: bls381_cuda.field_op(op, a, b), 10)
+        # the kernel alone, on words already repacked (the wrapper's
+        # limb <-> word repacking is plain torch around it)
+        words = [fq.to_words(t).contiguous() for t in (a, b)
+                 if t is not None]
+        out = torch.empty_like(words[0])
+        launch = cuda_build.build().field
+        alone_ms = graph_ms(lambda: launch(
+            bls381_cuda._OP_CODE[op], words[0],
+            words[1] if b is not None else None, out, FIELD_ELEMENTS), 10)
+        n_bytes = (arity + 1) * a.numel() // 32 * 12 * 4
+        bound_ms, bound_by = op_bound(FIELD_PRODUCTS[op] * FIELD_ELEMENTS,
+                                      n_bytes, n_sms, max_mhz)
+        print(f"bls381_field {op}: == plain bit for bit at "
+              f"{FIELD_ELEMENTS} elements; {kernel_ms:.6f} ms from a CUDA "
+              f"graph through the wrapper, {alone_ms:.6f} ms the kernel "
+              f"alone, bound {bound_ms:.6f} ms by {bound_by}", flush=True)
+
+    h_bits = torch.from_numpy(bls_cuda._H_EFF_BITS).to(CARD)
+    for n in LADDER_SIZES:
+        pt = _ladder_points(n)
+        bits = h_bits.expand(n, -1)
+        got = bls381_cuda.g2_ladder(pt, bits)
+        want = curve_torch.point_scalar_mul(curve_torch.F2, pt, bits)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err["bls381_g2"] = max(max_err["bls381_g2"], err)
+        check(err == 0, f"bls381_g2 != plain at {n} points ({err})")
+        print(f"bls381_g2: h_eff ladder == plain bit for bit at {n} points",
+              flush=True)
+
+    for k in MILLER_SIZES:
+        jobs = [_pairing_jobs(k, True), _pairing_jobs(k, False)]
+        xp, yp, xq, yq = (torch.cat([j[c] for j in jobs]) for c in range(4))
+        skip = torch.zeros(2 * k, dtype=torch.bool, device=CARD)
+        f = bls381_cuda.miller(xp, yp, xq, yq, skip)
+        prod, ok = bls381_cuda.product_final(f.reshape(2, k, 12, 32))
+        want_f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
+        want_prod, want_ok = pairing_torch.product_final(
+            want_f.reshape(2, k, 12, 32))
+        torch.cuda.synchronize()
+        err = max(_max_err(f, want_f), _max_err(prod, want_prod))
+        max_err["bls381_pairing"] = max(max_err["bls381_pairing"], err)
+        check(err == 0, f"bls381_pairing != plain at k = {k} ({err})")
+        check(ok.tolist() == want_ok.tolist() == [True, False],
+              f"bls381_pairing verdicts at k = {k}: {ok.tolist()}, plain "
+              f"{want_ok.tolist()}, expected [True, False]")
+        print(f"bls381_pairing: Miller values and products == plain bit "
+              f"for bit at k = {k}, verdicts [valid, invalid] == [True, "
+              f"False]", flush=True)
+
+    # the main path's shapes: one Verify's check (k = 2), one hashed
+    # message's ladder and its affine normalization
+    times = {}
+    xp, yp, xq, yq = _pairing_jobs(2, True)
+    skip = torch.zeros(2, dtype=torch.bool, device=CARD)
+
+    def check_once():
+        f = bls381_cuda.miller(xp, yp, xq, yq, skip)
+        return bls381_cuda.product_final(f.reshape(1, 2, 12, 32))
+
+    def check_plain():
+        f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
+        return pairing_torch.product_final(f.reshape(1, 2, 12, 32))
+    got, want = check_once(), check_plain()
+    check(_max_err(got[0], want[0]) == 0 and bool(got[1][0]),
+          "bls381_pairing at the main path's shape")
+    products = 2 * MILLER_PRODUCTS + 54 + FINAL_EXP_PRODUCTS
+    times["bls381_pairing"] = (graph_ms(check_once, 5),
+                               cuda_ms(check_plain, 1),
+                               *op_bound(products, (2 * 72 + 144) * 4,
+                                         n_sms, max_mhz))
+    pt = _ladder_points(1)
+    bits = h_bits.expand(1, -1)
+    check(_max_err(bls381_cuda.g2_ladder(pt, bits), curve_torch
+                   .point_scalar_mul(curve_torch.F2, pt, bits)) == 0,
+          "bls381_g2 at the main path's shape")
+    ones = int(bls_cuda._H_EFF_BITS.sum()) - 1      # the first add is free
+    products = len(bls_cuda._H_EFF_BITS) * G2_DOUBLE_PRODUCTS \
+        + ones * G2_ADD_PRODUCTS
+    times["bls381_g2"] = (
+        graph_ms(lambda: bls381_cuda.g2_ladder(pt, bits), 5),
+        cuda_ms(lambda: curve_torch.point_scalar_mul(curve_torch.F2, pt,
+                                                     bits), 1),
+        *op_bound(products, (72 * 2 + len(bls_cuda._H_EFF_BITS) / 4) * 4,
+                  n_sms, max_mhz))
+    cleared = bls381_cuda.g2_ladder(pt, bits)
+
+    def normalize_plain():
+        X, Y, Z = cleared
+        zinv = ft.fq2_inv(Z)
+        zinv2 = ft.fq2_square(zinv)
+        zinv3 = ft.fq2_mul(zinv2, zinv)
+        return ft.fq2_mul(torch.stack([X, Y]), torch.stack([zinv2, zinv3]))
+    got = torch.stack(bls_cuda._to_affine_g2(cleared))
+    check(_max_err(got, normalize_plain()) == 0,
+          "bls381_field at the main path's shape (affine normalization)")
+    products = FQ2_INV + 2 + 3 + 2 * 3
+    times["bls381_field"] = (
+        graph_ms(lambda: bls_cuda._to_affine_g2(cleared), 5),
+        cuda_ms(normalize_plain, 1),
+        *op_bound(products, (24 * 2 + 24 * 2 + 24 * 3 + 24 * 6) * 4, n_sms,
+                  max_mhz))
+    for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
+        print(f"{name} at the main path's shape: {ms:.6f} ms from a CUDA "
+              f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
+              f"ms by {bound_by}; no PyTorch call computes it, so no "
+              f"library time")
+    return max_err, times
+
+
+def _device_and_native(fn_name, *args):
+    bls.use_backend("cuda")
+    got = getattr(bls, fn_name)(*args)
+    bls.use_backend("native")
+    want = getattr(bls, fn_name)(*args)
+    bls.use_backend("cuda")
+    return got, want
+
+
+@phase("bls")
+def bls_phase():
+    """Seeded cases through the shim's device backend, each verdict equal
+    to the port's native oracle: Verify valid, tampered, wrong key and
+    infinity; FastAggregateVerify over a 128-key committee, valid and
+    invalid; AggregateVerify over 8 messages."""
+    rng = random.Random(SEED + 7)
+    sks, pks = consecutive_keys(FAV_COMMITTEE, rng.randrange(1, 2**128))
+    msg = b"chip smoke message"
+    sig = bls.Sign(sks[0], msg)
+    other = bls.Sign(sks[0], b"another message")
+    infinity_pk = b"\xc0" + b"\x00" * 47
+    cases = {
+        "Verify valid": ("Verify", pks[0], msg, sig, True),
+        "Verify tampered": ("Verify", pks[0], msg, other, False),
+        "Verify wrong key": ("Verify", pks[1], msg, sig, False),
+        "Verify infinity pubkey": ("Verify", infinity_pk, msg, sig, False),
+    }
+    agg = bls12_381.Sign(sum(sks) % R, msg)
+    cases["FastAggregateVerify 128 keys valid"] = (
+        "FastAggregateVerify", pks, msg, agg, True)
+    cases["FastAggregateVerify 128 keys invalid"] = (
+        "FastAggregateVerify", pks[:-1] + [pks[0]], msg, agg, False)
+    msgs = [bytes([i]) * 32 for i in range(AV_MESSAGES)]
+    av_sig = bls.Aggregate([bls.Sign(sk, m)
+                            for sk, m in zip(sks[:AV_MESSAGES], msgs)])
+    cases[f"AggregateVerify {AV_MESSAGES} messages"] = (
+        "AggregateVerify", pks[:AV_MESSAGES], msgs, av_sig, True)
+    plain = [w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
+             for w in ws]
+    for name, (fn, pk, m, s, expected) in cases.items():
+        t0 = time.perf_counter()
+        got, want = _device_and_native(fn, pk, m, s)
+        check(got is want is expected,
+              f"bls {name}: device {got}, native {want}, expected "
+              f"{expected}")
+        print(f"bls {name}: {got} on the device backend == native oracle "
+              f"({time.perf_counter() - t0:.6f} s both)", flush=True)
+    check([w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
+           for w in ws] == plain, "bls: a wrapper took its plain version")
+
+
+class BlockRecorder:
+    """Host clocks around the parts of a block's transition: the committee
+    scans (every `get_active_validator_indices` call), host decode (point
+    decompression and subgroup checks), hash-to-field with SSWU and the
+    isogeny, and the card's BLS work (the ladder, the affine normalization
+    and the pairing check, each timed to a synchronize, so the host clock
+    covers the kernels, their uploads and downloads)."""
+
+    def __init__(self, spec):
+        self.seconds = {}
+        self.calls = {}
+        self._saved = []
+        self._wrap("committee scans", spec, "get_active_validator_indices",
+                   instance=True)
+        for name in ("_resolve_pubkey", "_resolve_signature"):
+            self._wrap("host decode", bls_cuda, name)
+        for name in ("hash_to_field_fq2", "sswu_map", "iso_map"):
+            self._wrap("hash-to-field, SSWU, isogeny", h2c, name)
+        self._wrap("card: ladder", curve_torch, "g2_scalar_mul", sync=True)
+        self._wrap("card: affine normalization", bls_cuda, "_to_affine_g2",
+                   sync=True)
+        self._wrap("card: pairing checks", pairing_torch, "pairing_check",
+                   sync=True)
+        self._wrap("hash_to_g2_batch", bls_cuda, "hash_to_g2_batch")
+        self._wrap("process_slots", spec, "process_slots", instance=True)
+
+    def _wrap(self, label, owner, name, instance=False, sync=False):
+        fn = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self.seconds[label] = self.seconds.get(label, 0.0) \
+                + time.perf_counter() - t0
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+        self._saved.append((owner, name, None if instance else fn))
+        setattr(owner, name, run)
+
+    def close(self):
+        for owner, name, fn in reversed(self._saved):
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+
+
+def _bls_counts():
+    return {name: sum(w.launches for w in ws)
+            for name, ws in bls381_cuda.WRAPPERS.items()}
+
+
+def _reset_bls_counts():
+    for ws in bls381_cuda.WRAPPERS.values():
+        for w in ws:
+            w.launches = 0
+
+
+@phase("block")
+def block_phase():
+    """The block path: `block_case` at 262,144 validators (a signed block
+    at slot 98 with 8 full-committee attestations, a proposer and an
+    attester slashing: 14 signature checks) through `state_transition`
+    with BLS on and the device backend.  The root must equal the host
+    oracle and the JAX package's; every check must launch the ladder once
+    and the pairing kernel's two launches once; a copy whose first
+    attestation carries the wrong signature must be rejected there."""
+    spec = get_spec("phase0", "mainnet")
+    merkle.use_device_hashing()
+    t0 = time.perf_counter()
+    state, signed, facts = block_case(spec, N_VALIDATORS)
+    n_checks = len(facts["committees"]) + 6
+    print(f"block: pre-state of {N_VALIDATORS} validators with "
+          f"{facts['signers']} signers' keys and a block of "
+          f"{len(facts['committees'])} attestations (committees "
+          f"{facts['committees'][:2]}...), {n_checks} signature checks, "
+          f"built in {time.perf_counter() - t0:.6f} s (its state root from "
+          f"one transition of a copy with BLS off)", flush=True)
+    tampered_pre = state.copy()
+    bls.use_backend("cuda")
+    bls.bls_active = True
+    plain = [w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
+             for w in ws]
+    rec = BlockRecorder(spec)
+    try:
+        _reset_bls_counts()
+        t0 = time.perf_counter()
+        spec.state_transition(state, signed)
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        launches = _bls_counts()
+        per_wrapper = {w.__name__: w.launches
+                       for ws in bls381_cuda.WRAPPERS.values() for w in ws}
+    finally:
+        rec.close()
+    check([w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
+           for w in ws] == plain, "block: a wrapper took its plain version")
+    root = bytes(spec.hash_tree_root(state))
+    oracle = host_oracle(state)
+    check(root == oracle, f"block: root {root.hex()} != host-hashed oracle "
+          f"{oracle.hex()}")
+    check(root.hex() == POST_BLOCK_ROOT_98,
+          f"block: root {root.hex()} != the JAX package's "
+          f"{POST_BLOCK_ROOT_98}")
+    hashes = rec.calls.get("hash_to_g2_batch", 0)
+    checks = rec.calls.get("card: pairing checks", 0)
+    check(hashes == checks == n_checks,
+          f"block: {hashes} hash-to-G2 calls and {checks} pairing checks, "
+          f"expected {n_checks}")
+    check(per_wrapper["g2_ladder"] == hashes,
+          f"block: {per_wrapper['g2_ladder']} ladder launches for {hashes} "
+          f"hash-to-G2 calls")
+    check(per_wrapper["miller"] == per_wrapper["product_final"] == checks,
+          f"block: pairing launches {per_wrapper['miller']} + "
+          f"{per_wrapper['product_final']} for {checks} checks")
+    check(all(v > 0 for v in launches.values()),
+          f"block: a BLS kernel was not launched: {launches}")
+    sec = rec.seconds
+    print(f"block: state_transition {block_s:.6f} s with BLS on: "
+          f"process_slots 97 -> 98 {sec.get('process_slots', 0):.6f} s, "
+          f"committee scans {sec.get('committee scans', 0):.6f} s "
+          f"({rec.calls.get('committee scans', 0)} scans of the registry), "
+          f"host decode {sec.get('host decode', 0):.6f} s "
+          f"({rec.calls.get('host decode', 0)} points), hash-to-field with "
+          f"SSWU and isogeny "
+          f"{sec.get('hash-to-field, SSWU, isogeny', 0):.6f} s, card: "
+          f"ladder {sec.get('card: ladder', 0):.6f} s, affine "
+          f"normalization {sec.get('card: affine normalization', 0):.6f} s, "
+          f"pairing checks {sec.get('card: pairing checks', 0):.6f} s")
+    print(f"block: launches {per_wrapper} ({n_checks} signature checks)")
+    print(f"block: root at slot {BLOCK_SLOT} {root.hex()} == host oracle == "
+          f"JAX package")
+
+    bad = tampered_block(spec, signed, facts)
+    t0 = time.perf_counter()
+    try:
+        spec.state_transition(tampered_pre, bad)
+    except AssertionError as err:
+        frames = [f.name for f in traceback.extract_tb(err.__traceback__)]
+        check(frames[-1] == "process_attestation",
+              f"block: tampered copy rejected at {frames[-3:]}")
+        print(f"block: the copy with a tampered first attestation is "
+              f"rejected at process_attestation "
+              f"({time.perf_counter() - t0:.6f} s)")
+    else:
+        check(False, "block: the tampered copy was accepted")
+    return launches
+
+
 def main():
     card, n_sms, max_mhz = device_phase()
     build_phase()
@@ -998,7 +1683,21 @@ def main():
     gather_err, g = gather_kernel_phase(n_sms, max_mhz, largest)
     epoch_launches = epoch_phase()
     epoch_err, e = epoch_kernel_phase(n_sms, max_mhz)
+    bls_err, bls_times = bls_kernels_phase(n_sms, max_mhz)
+    bls_phase()
+    bls_launches = block_phase()
     t = times[MAIN_PATH_PAIRS]
+    bls_rows = [dict(
+        name=name, route="cuda",
+        source=f"consensus_specs_tpu_torch/ops/csrc/{name}.cu",
+        replaces=replaces, launches=bls_launches[name],
+        max_abs_err=bls_err[name], ms=bls_times[name][0],
+        plain_ms=bls_times[name][1], bound_ms=bls_times[name][2],
+        bound_by=bls_times[name][3], library_ms=None)
+        for name, replaces in (
+            ("bls381_pairing", "consensus_specs_tpu/ops/pairing_jax.py:706"),
+            ("bls381_g2", "consensus_specs_tpu/ops/curve_jax.py:175"),
+            ("bls381_field", "consensus_specs_tpu/ops/fq.py:265"))]
     print(json.dumps({"kernels": [{
         "name": "sha256_pairs", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_pairs.cu",
@@ -1017,7 +1716,7 @@ def main():
         "replaces": "consensus_specs_tpu/ops/epoch_sweep.py:74",
         "launches": epoch_launches, "max_abs_err": epoch_err,
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None}]}))
+        "bound_by": e["bound_by"], "library_ms": None}, *bls_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

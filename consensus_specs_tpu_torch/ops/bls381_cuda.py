@@ -1,0 +1,222 @@
+"""The CUDA BLS12-381 kernels: layouts, launch and count.
+
+Counterparts of the XLA device programs of consensus_specs_tpu/ops/fq.py,
+fq_tower.py, curve_jax.py and pairing_jax.py.  Three kernels, written for
+sm_90a on one set of device functions (csrc/bls381.cuh), built at first use
+with the port's other kernels (ops/cuda_build.py):
+
+- csrc/bls381_pairing.cu, the pairing check in two launches: `miller`
+  (launch 1, a Miller loop a pair) and `product_final` (launch 2, a job's
+  product and final exponentiation);
+- csrc/bls381_g2.cu, the G2 ladder: `g2_ladder`;
+- csrc/bls381_field.cu, one elementwise kernel over the field, tower and
+  curve ops: `field_op`.
+
+Each wrapper takes and returns the plain version's limb layout (int64
+[..., 32] 12-bit limbs, ops/fq.py) and repacks to the kernels' 12 x 32-bit
+words on the card (`fq.to_words` / `fq.from_words`).  On CUDA tensors it
+launches its kernel or raises; on CPU tensors it runs the plain version, and
+only for that reason.  `.launches` counts kernel launches and `.plain_calls`
+calls that took the plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import cuda_build, curve_torch, fq, pairing_torch
+from . import fq_tower as ft
+
+F1, F2 = curve_torch.F1, curve_torch.F2
+
+
+def _g1(fn):
+    return lambda a, *b: torch.stack(
+        fn(F1, a.unbind(-2), *(p.unbind(-2) for p in b)), dim=-2)
+
+
+def _g2(fn):
+    return lambda a, *b: torch.stack(
+        fn(F2, a.unbind(-3), *(p.unbind(-3) for p in b)), dim=-3)
+
+
+# op name: (element limb shape, arity, plain version), in the order of
+# csrc/bls381.cuh `enum FieldOp` (the op code is the index)
+FIELD_OPS = {
+    "fq_mul": ((32,), 2, fq.mul),
+    "fq_add": ((32,), 2, fq.add),
+    "fq_sub": ((32,), 2, fq.sub),
+    "fq_neg": ((32,), 1, fq.neg),
+    "fq_inv": ((32,), 1, ft.fq_inv),
+    "fq2_mul": ((2, 32), 2, ft.fq2_mul),
+    "fq2_square": ((2, 32), 1, ft.fq2_square),
+    "fq2_inv": ((2, 32), 1, ft.fq2_inv),
+    "fq12_mul": ((12, 32), 2, ft.fq12_mul),
+    "fq12_square": ((12, 32), 1, ft.fq12_square),
+    "fq12_cyclotomic_square": ((12, 32), 1, ft.fq12_cyclotomic_square),
+    "fq12_frobenius1": ((12, 32), 1, lambda a: ft.fq12_frobenius(a, 1)),
+    "fq12_frobenius2": ((12, 32), 1, lambda a: ft.fq12_frobenius(a, 2)),
+    "fq12_frobenius3": ((12, 32), 1, lambda a: ft.fq12_frobenius(a, 3)),
+    "fq12_conj": ((12, 32), 1, ft.fq12_conj),
+    "fq12_inv": ((12, 32), 1, ft.fq12_inv),
+    "g1_add": ((3, 32), 2, _g1(curve_torch.point_add)),
+    "g1_double": ((3, 32), 1, _g1(curve_torch.point_double)),
+    "g2_add": ((3, 2, 32), 2, _g2(curve_torch.point_add)),
+    "g2_double": ((3, 2, 32), 1, _g2(curve_torch.point_double)),
+}
+_OP_CODE = {name: i for i, name in enumerate(FIELD_OPS)}
+
+
+def _check(name, t, suffix, dtype, device=None):
+    if t.dim() < len(suffix) or tuple(t.shape[-len(suffix):]) != suffix:
+        raise ValueError(f"{name}: expected shape [..., "
+                         f"{', '.join(map(str, suffix))}], got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} on unsupported device {t.device}")
+
+
+def _words(limbs):
+    return fq.to_words(limbs).contiguous()
+
+
+def field_op(op: str, a: torch.Tensor, b: torch.Tensor | None = None):
+    """out = op(a[, b]) elementwise over int64 limb tensors whose trailing
+    shape is the op's element shape (FIELD_OPS); a binary op's inputs must
+    have one shape.  The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if op not in FIELD_OPS:
+        raise ValueError(f"unknown field op {op!r}")
+    suffix, arity, plain = FIELD_OPS[op]
+    _check(f"{op} a", a, suffix, torch.int64)
+    if (b is None) != (arity == 1):
+        raise ValueError(f"{op} takes {arity} operand(s)")
+    if b is not None:
+        _check(f"{op} b", b, suffix, torch.int64, a.device)
+        if b.shape != a.shape:
+            raise ValueError(f"{op}: shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)} differ")
+    if a.device.type == "cpu":
+        field_op.plain_calls += 1
+        return plain(a) if b is None else plain(a, b)
+    kernels = cuda_build.build()
+    n = a.numel() // math.prod(suffix)
+    wa = _words(a)
+    wb = None if b is None else _words(b)
+    out = torch.empty_like(wa)
+    if n:
+        kernels.field(_OP_CODE[op], wa, wb, out, n)
+        field_op.launches += 1
+    return fq.from_words(out)
+
+
+field_op.launches = 0
+field_op.plain_calls = 0
+
+
+def g2_ladder(pt, bits):
+    """The G2 ladder: msb-first double-and-add of each Jacobian point
+    (X, Y, Z), each [n, 2, 32] int64 limbs, over its bit row of `bits`
+    [n, nbits] (0/1, any integer or bool dtype).  Returns (X, Y, Z) in the
+    same layout.  The kernel on CUDA tensors, the plain version
+    (curve_torch.point_scalar_mul) on CPU tensors."""
+    X, Y, Z = pt
+    for name, t in zip("XYZ", pt):
+        _check(f"g2_ladder {name}", t, (2, 32), torch.int64, X.device)
+        if t.shape != X.shape or t.dim() != 3:
+            raise ValueError(f"g2_ladder: expected [n, 2, 32] coordinates, "
+                             f"got {tuple(t.shape)}")
+    n = X.shape[0]
+    if bits.dim() != 2 or bits.shape[0] != n:
+        raise ValueError(f"g2_ladder: expected bits [{n}, nbits], got "
+                         f"{tuple(bits.shape)}")
+    if bits.device != X.device:
+        raise ValueError(f"g2_ladder: bits on {bits.device}, points on "
+                         f"{X.device}")
+    if X.device.type == "cpu":
+        g2_ladder.plain_calls += 1
+        return curve_torch.point_scalar_mul(F2, pt, bits)
+    kernels = cuda_build.build()
+    words = _words(torch.stack(pt, dim=1))            # [n, 3, 2, 12]
+    bits8 = bits.to(torch.uint8).contiguous()
+    out = torch.empty_like(words)
+    if n:
+        kernels.ladder(words, bits8, bits.shape[1], out, n)
+        g2_ladder.launches += 1
+    return tuple(fq.from_words(out).unbind(1))
+
+
+g2_ladder.launches = 0
+g2_ladder.plain_calls = 0
+
+
+def miller(xp, yp, xq, yq, skip):
+    """Launch 1 of the pairing check: the Miller loop of each pair, P =
+    (xp, yp) [n, 32], Q = (xq, yq) [n, 2, 32] affine Montgomery limbs,
+    skip bool [n].  Returns f [n, 12, 32] (conjugated; one where skip).
+    The kernel on CUDA tensors, the plain version
+    (pairing_torch.miller_loop) on CPU tensors."""
+    n = xp.shape[0] if xp.dim() == 2 else -1
+    for name, t, suffix in (("xp", xp, (32,)), ("yp", yp, (32,)),
+                            ("xq", xq, (2, 32)), ("yq", yq, (2, 32))):
+        _check(f"miller {name}", t, suffix, torch.int64, xp.device)
+        if t.dim() != 1 + len(suffix) or t.shape[0] != n:
+            raise ValueError(f"miller {name}: expected [{n}, "
+                             f"{', '.join(map(str, suffix))}], got "
+                             f"{tuple(t.shape)}")
+    if skip.shape != (n,) or skip.dtype != torch.bool \
+            or skip.device != xp.device:
+        raise ValueError(f"miller: expected a bool skip mask [{n}] on "
+                         f"{xp.device}")
+    if xp.device.type == "cpu":
+        miller.plain_calls += 1
+        return pairing_torch.miller_loop(xp, yp, xq, yq, skip)
+    kernels = cuda_build.build()
+    g1 = _words(torch.stack([xp, yp], dim=1))        # [n, 2, 12]
+    g2 = _words(torch.stack([xq, yq], dim=1))        # [n, 2, 2, 12]
+    f = torch.empty((n, 12, fq.WORDS), dtype=torch.int32, device=xp.device)
+    if n:
+        kernels.miller(g1, g2, skip.to(torch.uint8).contiguous(), f, n)
+        miller.launches += 1
+    return fq.from_words(f)
+
+
+miller.launches = 0
+miller.plain_calls = 0
+
+
+def product_final(f, final: bool = True):
+    """Launch 2 of the pairing check: f [b, k, 12, 32] Miller values ->
+    (product [b, 12, 32], is_one bool [b] of the product's final
+    exponentiation, or None without `final`).  The kernel on CUDA tensors,
+    the plain version (pairing_torch.product_final) on CPU tensors."""
+    _check("product_final f", f, (12, 32), torch.int64)
+    if f.dim() != 4 or f.shape[1] < 1:
+        raise ValueError(f"product_final: expected f [b, k >= 1, 12, 32], "
+                         f"got {tuple(f.shape)}")
+    if f.device.type == "cpu":
+        product_final.plain_calls += 1
+        return pairing_torch.product_final(f, final)
+    kernels = cuda_build.build()
+    b, k = f.shape[:2]
+    words = _words(f)
+    prod = torch.empty((b, 12, fq.WORDS), dtype=torch.int32, device=f.device)
+    ok = torch.zeros(b, dtype=torch.uint8, device=f.device)
+    if b:
+        kernels.final(words, k, bool(final), prod, ok, b)
+        product_final.launches += 1
+    return fq.from_words(prod), (ok.to(torch.bool) if final else None)
+
+
+product_final.launches = 0
+product_final.plain_calls = 0
+
+# every wrapper of the three kernels, by kernel name (chip_smoke.py reads
+# and resets their counts)
+WRAPPERS = {"bls381_pairing": (miller, product_final),
+            "bls381_g2": (g2_ladder,), "bls381_field": (field_op,)}

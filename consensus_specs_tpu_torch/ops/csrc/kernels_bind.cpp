@@ -1,7 +1,8 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
-// epoch_sweep.cu), for torch.utils.cpp_extension.load.  The one file of the
-// port that includes PyTorch's headers.  The Python wrappers
-// (ops/sha256_cuda.py, ops/epoch_sweep_cuda.py) check shape, dtype, device,
+// epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu), for
+// torch.utils.cpp_extension.load.  The one file of the port that includes
+// PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
+// ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
 // contiguity, alignment and offsets before they call in.
 
 #include <torch/extension.h>
@@ -16,6 +17,17 @@ extern "C" int sha256_gather_launch(void* pool, const void* idx_l,
                                     int64_t n_pairs, void* stream);
 extern "C" int epoch_sweep_launch(const int64_t* params, int* launched,
                                   void* stream);
+extern "C" int bls381_field_launch(int op, const void* a, const void* b,
+                                   void* out, int64_t n, void* stream);
+extern "C" int bls381_g2_ladder_launch(const void* pts, const void* bits,
+                                       int64_t nbits, void* out, int64_t n,
+                                       void* stream);
+extern "C" int bls381_miller_launch(const void* g1, const void* g2,
+                                    const void* skip, void* f, int64_t n,
+                                    void* stream);
+extern "C" int bls381_final_launch(const void* f, int64_t k, int do_final,
+                                   void* prod, void* ok, int64_t b,
+                                   void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -50,10 +62,58 @@ int64_t epoch_sweep(const torch::Tensor& params, const torch::Tensor& like) {
   return launched;
 }
 
+// out = op(a, b) over n elements (bls381_field.cu); has_b false for a
+// unary op, whose b is not read.
+void bls381_field(int64_t op, const torch::Tensor& a, const torch::Tensor& b,
+                  bool has_b, torch::Tensor out, int64_t n) {
+  const c10::cuda::CUDAGuard guard(a.device());
+  const int rc = bls381_field_launch(
+      static_cast<int>(op), a.data_ptr(), has_b ? b.data_ptr() : nullptr,
+      out.data_ptr(), n, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// The G2 ladder of n points over their bit rows (bls381_g2.cu).
+void bls381_ladder(const torch::Tensor& pts, const torch::Tensor& bits,
+                   int64_t nbits, torch::Tensor out, int64_t n) {
+  const c10::cuda::CUDAGuard guard(pts.device());
+  const int rc = bls381_g2_ladder_launch(
+      pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// Launch 1 of the pairing check: n Miller loops (bls381_pairing.cu).
+void bls381_miller(const torch::Tensor& g1, const torch::Tensor& g2,
+                   const torch::Tensor& skip, torch::Tensor f, int64_t n) {
+  const c10::cuda::CUDAGuard guard(g1.device());
+  const int rc = bls381_miller_launch(
+      g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), f.data_ptr(), n,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// Launch 2: b jobs' products of k Miller values, and their final
+// exponentiation's is-one when do_final (bls381_pairing.cu).
+void bls381_final(const torch::Tensor& f, int64_t k, bool do_final,
+                  torch::Tensor prod, torch::Tensor ok, int64_t b) {
+  const c10::cuda::CUDAGuard guard(f.device());
+  const int rc = bls381_final_launch(
+      f.data_ptr(), k, do_final ? 1 : 0, prod.data_ptr(), ok.data_ptr(), b,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_pairs", &sha256_pairs, "SHA-256 of each 64-byte chunk pair");
   m.def("sha256_gather", &sha256_gather,
         "SHA-256 of chunk pairs gathered by index, written in place");
   m.def("epoch_sweep", &epoch_sweep,
         "the per-validator epoch sweep, up to three launches");
+  m.def("bls381_field", &bls381_field,
+        "a BLS12-381 field, tower or curve op, elementwise");
+  m.def("bls381_ladder", &bls381_ladder, "the G2 double-and-add ladder");
+  m.def("bls381_miller", &bls381_miller, "Miller loops, one a pair");
+  m.def("bls381_final", &bls381_final,
+        "a job's Miller product and final exponentiation");
 }

@@ -11,8 +11,9 @@ or library under `build/torch_ext/` beside the package:
   `nvcc -shared` into a plain C library loaded with ctypes.
 
 Nothing is built while this module is imported.  `build()` returns the
-launchers; the wrappers in `sha256_cuda.py` and `epoch_sweep_cuda.py` check
-their tensors before they call one, and raise on a refused launch.
+launchers; the wrappers in `sha256_cuda.py`, `epoch_sweep_cuda.py` and
+`bls381_cuda.py` check their tensors before they call one, and raise on a
+refused launch.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 KERNEL_SOURCES = tuple(os.path.join(CSRC, name) for name in (
-    "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu"))
+    "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu",
+    "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu"))
 BINDING_SOURCE = os.path.join(CSRC, "kernels_bind.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -63,8 +65,14 @@ def _build_cpp_extension():
 
     def epoch(params, like):
         return ext.epoch_sweep(torch.from_numpy(params), like)
-    return SimpleNamespace(pairs=ext.sha256_pairs, gather=ext.sha256_gather,
-                           epoch=epoch)
+
+    def field(op, a, b, out, n):
+        ext.bls381_field(op, a, a if b is None else b, b is not None, out,
+                         n)
+    return SimpleNamespace(
+        pairs=ext.sha256_pairs, gather=ext.sha256_gather, epoch=epoch,
+        field=field, ladder=ext.bls381_ladder, miller=ext.bls381_miller,
+        final=ext.bls381_final)
 
 
 def _nvcc(nvcc, args):
@@ -103,6 +111,17 @@ def _build_ctypes():
     epoch_fn = lib.epoch_sweep_launch
     epoch_fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     epoch_fn.restype = ctypes.c_int
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    field_fn = lib.bls381_field_launch
+    field_fn.argtypes = [ctypes.c_int, ptr, ptr, ptr, i64, ptr]
+    ladder_fn = lib.bls381_g2_ladder_launch
+    ladder_fn.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
+    miller_fn = lib.bls381_miller_launch
+    miller_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
+    final_fn = lib.bls381_final_launch
+    final_fn.argtypes = [ptr, i64, ctypes.c_int, ptr, ptr, i64, ptr]
+    for fn in (field_fn, ladder_fn, miller_fn, final_fn):
+        fn.restype = ctypes.c_int
 
     def stream_of(t):
         return torch.cuda.current_stream(t.device).cuda_stream
@@ -123,15 +142,44 @@ def _build_ctypes():
                 params.ctypes.data, ctypes.addressof(launched),
                 stream_of(like)))
         return launched.value
-    return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch)
+
+    def field(op, a, b, out, n):
+        with torch.cuda.device(a.device):
+            _check("bls381_field", field_fn(
+                op, a.data_ptr(), None if b is None else b.data_ptr(),
+                out.data_ptr(), n, stream_of(a)))
+
+    def ladder(pts, bits, nbits, out, n):
+        with torch.cuda.device(pts.device):
+            _check("bls381_g2", ladder_fn(
+                pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
+                stream_of(pts)))
+
+    def miller(g1, g2, skip, f, n):
+        with torch.cuda.device(g1.device):
+            _check("bls381_pairing (Miller loop)", miller_fn(
+                g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), f.data_ptr(),
+                n, stream_of(g1)))
+
+    def final(f, k, do_final, prod, ok, b):
+        with torch.cuda.device(f.device):
+            _check("bls381_pairing (final exponentiation)", final_fn(
+                f.data_ptr(), k, int(do_final), prod.data_ptr(),
+                ok.data_ptr(), b, stream_of(f)))
+    return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch,
+                           field=field, ladder=ladder, miller=miller,
+                           final=final)
 
 
 def build():
     """Build every kernel (once per process) and return their launchers:
-    `.pairs(chunks, out)`, `.gather(pool, idx_l, idx_r, out_offset)` and
+    `.pairs(chunks, out)`, `.gather(pool, idx_l, idx_r, out_offset)`,
     `.epoch(params, like)`, which takes the int64 numpy parameter array of
     `epoch_sweep_cuda.PARAMS` and a tensor on the sweep's device, and
-    returns the number of kernels it launched."""
+    returns the number of kernels it launched, and the BLS12-381 kernels'
+    `.field(op, a, b, out, n)` (b None for a unary op), `.ladder(pts,
+    bits, nbits, out, n)`, `.miller(g1, g2, skip, f, n)` and `.final(f, k,
+    do_final, prod, ok, b)` (bls381_cuda.py gives the layouts)."""
     global _kernels, build_route
     if _kernels is None:
         from torch.utils import cpp_extension

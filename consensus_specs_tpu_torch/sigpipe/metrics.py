@@ -1,4 +1,4 @@
-"""Pipeline metrics: counters and power-of-two histograms.
+"""Pipeline metrics: counters, observations and power-of-two histograms.
 
 A slim copy of consensus_specs_tpu/sigpipe/metrics.py: one module-global
 `METRICS` registry with the calls incremental merkleization
@@ -31,6 +31,16 @@ and the calls of the fused epoch engine (specs/epoch_fast.py):
   the differential guard recomputed with the plain version on the host,
   and those that disagreed (a mismatch also raises).
 
+and the observation of the BLS path (ops/bls_cuda.py):
+
+- `miller_loops_per_batch`: the pairs of each batched pairing check that
+  a FastAggregateVerify or AggregateVerify batch dispatched (count,
+  total, min, max and mean), one observation a batch.
+
+The kernels' own counts are the wrappers' `.launches` and `.plain_calls`
+(ops/sha256_cuda.py, ops/epoch_sweep_cuda.py, ops/bls381_cuda.py), not
+counters here.
+
 The reference routes every call through a per-node context and a named
 lock registry; the port keeps one registry behind one plain lock.
 """
@@ -47,6 +57,7 @@ class Metrics:
     def reset(self) -> None:
         with self._lock:
             self.counters: dict = {}
+            self.observations: dict = {}
             self.histograms: dict = {}
 
     def inc(self, name: str, by: int = 1) -> None:
@@ -56,6 +67,20 @@ class Metrics:
     def count(self, name: str) -> int:
         with self._lock:
             return self.counters.get(name, 0)
+
+    def observe(self, name: str, value) -> None:
+        """Fold one observation into `name`'s count, total, min and max
+        (no per-sample storage)."""
+        with self._lock:
+            o = self.observations.get(name)
+            if o is None:
+                self.observations[name] = {"count": 1, "total": value,
+                                           "min": value, "max": value}
+            else:
+                o["count"] += 1
+                o["total"] += value
+                o["min"] = min(o["min"], value)
+                o["max"] = max(o["max"], value)
 
     @staticmethod
     def _bucket(value: int) -> str:
@@ -78,6 +103,8 @@ class Metrics:
     def snapshot(self) -> dict:
         with self._lock:
             out = dict(self.counters)
+            for name, o in self.observations.items():
+                out[name] = dict(o, mean=o["total"] / o["count"])
             for name, series in self.histograms.items():
                 out[f"{name}_hist"] = {
                     b: series[b] for b in sorted(series, key=int)}

@@ -1,7 +1,10 @@
 """Spec-object machinery.
 
-Counterpart of consensus_specs_tpu/specs/base.py without the signature
-verification seams, which come with the BLS slice.  Each fork is a class; a
+Counterpart of consensus_specs_tpu/specs/base.py, with its signature
+verification seams (`bls_verify`, `bls_fast_aggregate_verify`), through
+which every signature check of the spec reaches utils/bls.py.  The sigpipe
+that would install a precomputed verdict map is not ported yet, so the map
+stays None and every seam call is a scalar verify.  Each fork is a class; a
 *spec instance* is (fork class × preset × config), carrying its own SSZ
 container classes (preset values define vector/list shapes) and all spec
 functions as methods.  Class inheritance gives the consensus-specs fork-overlay
@@ -9,11 +12,18 @@ semantics (pysetup/helpers.py combine_spec_objects — later fork wins).
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 from ..config import Config, load_config, load_preset
+from ..utils import bls
 
 
 class BaseSpec:
     fork: str = "base"
+
+    # verdict map of a signature-pipeline window (None: every seam call is
+    # a plain scalar verify)
+    _sigpipe_verdicts = None
 
     def __init__(self, preset_name: str = "mainnet",
                  config: Config | None = None):
@@ -34,8 +44,52 @@ class BaseSpec:
     def _build_types(self) -> None:
         pass
 
+    def _cached(self, key, fn):
+        """Memoize an expensive pure accessor on this spec instance."""
+        cache = self._caches
+        if key not in cache:
+            cache[key] = fn()
+        return cache[key]
+
     def is_post(self, fork_name: str) -> bool:
         """True if this spec builds on the given fork (MRO ancestry)."""
         mro_forks = [c.fork for c in type(self).__mro__
                      if hasattr(c, "fork")]
         return fork_name in mro_forks
+
+    # -- signature verification seam -----------------------------------
+    # Every per-operation signature check of the spec flows through these
+    # two methods, so a precomputed batch verdict can stand in for the
+    # scalar call at the exact call site.  A map miss falls back to the
+    # scalar backend, so routing through the seam never changes behaviour.
+
+    @contextmanager
+    def install_sigpipe_verdicts(self, verdict_map):
+        """Install a verdict map (an object with `lookup(pubkeys,
+        signing_root, signature)` returning a bool or None) on this spec
+        instance for the duration; nestable."""
+        previous = self._sigpipe_verdicts
+        self._sigpipe_verdicts = verdict_map
+        try:
+            yield
+        finally:
+            self._sigpipe_verdicts = previous
+
+    def bls_verify(self, pubkey, signing_root, signature) -> bool:
+        verdicts = self._sigpipe_verdicts
+        if verdicts is not None:
+            v = verdicts.lookup((bytes(pubkey),), bytes(signing_root),
+                                bytes(signature))
+            if v is not None:
+                return v
+        return bls.Verify(pubkey, signing_root, signature)
+
+    def bls_fast_aggregate_verify(self, pubkeys, signing_root,
+                                  signature) -> bool:
+        verdicts = self._sigpipe_verdicts
+        if verdicts is not None:
+            v = verdicts.lookup(tuple(bytes(pk) for pk in pubkeys),
+                                bytes(signing_root), bytes(signature))
+            if v is not None:
+                return v
+        return bls.FastAggregateVerify(pubkeys, signing_root, signature)

@@ -1,18 +1,22 @@
-"""Phase0 beacon-chain spec (partial port).
+"""Phase0 beacon-chain spec.
 
 Counterpart of consensus_specs_tpu/specs/phase0.py, which implements the
 consensus-specs phase0 rules (specs/phase0/beacon-chain.md) function by
-function.  Ported so far: the constants, the SSZ containers, the math
-helpers, the predicates, the shuffle and committee accessors, the mutators,
-the per-slot transition (`process_slots` / `process_slot`), whose state root
-is the port's main path, and epoch processing.  `process_slots` tracks the
+function.  Ported: the constants, the SSZ containers, the math helpers, the
+predicates, the shuffle, committee and proposer accessors, the mutators
+and slashing, genesis, the state transition (`state_transition`,
+`process_slots` / `process_slot`), epoch processing and block processing
+with every operation.  `process_slots` and `state_transition` track the
 state for incremental merkleization as the reference does
 (ssz/incremental.py).  `process_epoch` runs the fused engine
 (specs/epoch_fast.py: one `ops.epoch_sweep` dispatch, on the CUDA kernel on
 the card) and then the cheap tail resets; inside `epoch_fast.scalar_epoch()`
-it runs the reference-shaped scalar pass list instead.  Block processing,
-the fork-choice and validator-duty mixins, proposer selection and BLS come
-with later slices of the port (ROADMAP.md).
+it runs the reference-shaped scalar pass list instead.  Every signature
+check goes through the seams of specs/base.py to utils/bls.py, whose
+default backend runs the ladder and pairing kernels; there is no deferred
+signature pipeline yet (`state_transition` has no `block_scope`).  The
+fork-choice and validator-duty mixins come with later slices of the port
+(ROADMAP.md).
 
 NOTE: no `from __future__ import annotations` here — SSZ Container fields
 are declared via class annotations and must stay live types (PEP 563 would
@@ -25,6 +29,7 @@ from ..ssz import (
 )
 from ..ssz import incremental as ssz_incremental
 from ..ssz.merkle import is_valid_merkle_branch as _merkle_branch_ok
+from ..utils import bls
 from ..utils.hash import hash as sha256_hash
 from .base import BaseSpec
 
@@ -277,6 +282,7 @@ class Phase0Spec(BaseSpec):
     hash = staticmethod(sha256_hash)
     hash_tree_root = staticmethod(hash_tree_root)
     serialize = staticmethod(serialize)
+    bls = bls
 
     @staticmethod
     def is_valid_merkle_branch(leaf, branch, depth, index, root) -> bool:
@@ -307,6 +313,17 @@ class Phase0Spec(BaseSpec):
         return ((data_1 != data_2 and data_1.target.epoch == data_2.target.epoch)
                 or (data_1.source.epoch < data_2.source.epoch
                     and data_2.target.epoch < data_1.target.epoch))
+
+    def is_valid_indexed_attestation(self, state, indexed_attestation) -> bool:
+        indices = list(indexed_attestation.attesting_indices)
+        if len(indices) == 0 or indices != sorted(set(int(i) for i in indices)):
+            return False
+        pubkeys = [state.validators[i].pubkey for i in indices]
+        domain = self.get_domain(state, self.DOMAIN_BEACON_ATTESTER,
+                                 indexed_attestation.data.target.epoch)
+        signing_root = self.compute_signing_root(indexed_attestation.data, domain)
+        return self.bls_fast_aggregate_verify(pubkeys, signing_root,
+                                              indexed_attestation.signature)
 
     # ------------------------------------------------------------------
     # misc computations (beacon-chain.md "Misc" helpers)
@@ -345,6 +362,22 @@ class Phase0Spec(BaseSpec):
         else:
             cache[key] = cache.pop(key)   # refresh LRU order
         return cache[key]
+
+    def compute_proposer_index(self, state, indices, seed) -> int:
+        """Balance-weighted rejection sampling over a shuffled candidate list."""
+        assert len(indices) > 0
+        MAX_RANDOM_BYTE = 2**8 - 1
+        i = 0
+        total = len(indices)
+        perm = self._shuffle_permutation(seed, total)
+        while True:
+            candidate_index = indices[int(perm[i % total])]
+            random_byte = self.hash(bytes(seed) + uint_to_bytes(uint64(i // 32)))[i % 32]
+            effective_balance = state.validators[candidate_index].effective_balance
+            if (effective_balance * MAX_RANDOM_BYTE
+                    >= self.MAX_EFFECTIVE_BALANCE * random_byte):
+                return uint64(candidate_index)
+            i += 1
 
     def compute_committee(self, indices, seed, index: int, count: int):
         start = len(indices) * index // count
@@ -453,6 +486,14 @@ class Phase0Spec(BaseSpec):
             index=(slot % self.SLOTS_PER_EPOCH) * committees_per_slot + index,
             count=committees_per_slot * self.SLOTS_PER_EPOCH)
 
+    def get_beacon_proposer_index(self, state) -> int:
+        epoch = self.get_current_epoch(state)
+        seed = self.hash(
+            bytes(self.get_seed(state, epoch, self.DOMAIN_BEACON_PROPOSER))
+            + uint_to_bytes(uint64(state.slot)))
+        indices = self.get_active_validator_indices(state, epoch)
+        return self.compute_proposer_index(state, indices, seed)
+
     def get_total_balance(self, state, indices) -> int:
         return uint64(max(
             self.EFFECTIVE_BALANCE_INCREMENT,
@@ -469,6 +510,13 @@ class Phase0Spec(BaseSpec):
                         else state.fork.current_version)
         return self.compute_domain(domain_type, fork_version,
                                    state.genesis_validators_root)
+
+    def get_indexed_attestation(self, state, attestation):
+        attesting_indices = self.get_attesting_indices(state, attestation)
+        return self.IndexedAttestation(
+            attesting_indices=sorted(int(i) for i in attesting_indices),
+            data=attestation.data,
+            signature=attestation.signature)
 
     def get_attesting_indices(self, state, attestation):
         committee = self.get_beacon_committee(
@@ -503,9 +551,130 @@ class Phase0Spec(BaseSpec):
             validator.exit_epoch
             + self.config.MIN_VALIDATOR_WITHDRAWABILITY_DELAY)
 
+    def slash_validator(self, state, slashed_index,
+                        whistleblower_index=None) -> None:
+        epoch = self.get_current_epoch(state)
+        self.initiate_validator_exit(state, slashed_index)
+        validator = state.validators[slashed_index]
+        validator.slashed = True
+        validator.withdrawable_epoch = uint64(max(
+            int(validator.withdrawable_epoch),
+            int(epoch + self.EPOCHS_PER_SLASHINGS_VECTOR)))
+        state.slashings[epoch % self.EPOCHS_PER_SLASHINGS_VECTOR] = uint64(
+            state.slashings[epoch % self.EPOCHS_PER_SLASHINGS_VECTOR]
+            + validator.effective_balance)
+        slashing_penalty = validator.effective_balance \
+            // self.min_slashing_penalty_quotient()
+        self.decrease_balance(state, slashed_index, slashing_penalty)
+
+        proposer_index = self.get_beacon_proposer_index(state)
+        if whistleblower_index is None:
+            whistleblower_index = proposer_index
+        whistleblower_reward = uint64(
+            validator.effective_balance
+            // self.whistleblower_reward_quotient())
+        proposer_reward = self.slashing_proposer_reward(whistleblower_reward)
+        self.increase_balance(state, proposer_index, proposer_reward)
+        self.increase_balance(state, whistleblower_index,
+                              uint64(whistleblower_reward - proposer_reward))
+
+    # fork-overridable pieces of slash_validator
+    def min_slashing_penalty_quotient(self) -> int:
+        return self.MIN_SLASHING_PENALTY_QUOTIENT
+
+    def whistleblower_reward_quotient(self) -> int:
+        return self.WHISTLEBLOWER_REWARD_QUOTIENT
+
+    def slashing_proposer_reward(self, whistleblower_reward) -> int:
+        return uint64(whistleblower_reward // self.PROPOSER_REWARD_QUOTIENT)
+
+    # ------------------------------------------------------------------
+    # genesis (beacon-chain.md "Genesis")
+    # ------------------------------------------------------------------
+    def initialize_beacon_state_from_eth1(self, eth1_block_hash,
+                                          eth1_timestamp, deposits):
+        # per-fork genesis versions: each fork's builder in the
+        # reference rewrites this initializer with its own version pair
+        # (pysetup/spec_builders); here the overridable
+        # genesis_fork_versions() carries that role
+        previous_version, current_version = self.genesis_fork_versions()
+        fork = self.Fork(
+            previous_version=previous_version,
+            current_version=current_version,
+            epoch=self.GENESIS_EPOCH)
+        state = self.BeaconState(
+            genesis_time=uint64(eth1_timestamp + self.config.GENESIS_DELAY),
+            fork=fork,
+            eth1_data=self.Eth1Data(block_hash=eth1_block_hash,
+                                    deposit_count=len(deposits)),
+            latest_block_header=self.BeaconBlockHeader(
+                body_root=hash_tree_root(self.BeaconBlockBody())),
+            randao_mixes=[eth1_block_hash] * self.EPOCHS_PER_HISTORICAL_VECTOR)
+
+        # process genesis deposits
+        leaves = [d.data for d in deposits]
+        deposit_list_type = List[self.DepositData,
+                                 2**self.DEPOSIT_CONTRACT_TREE_DEPTH]
+        for index, deposit in enumerate(deposits):
+            deposit_data_list = deposit_list_type(leaves[:index + 1])
+            state.eth1_data.deposit_root = hash_tree_root(deposit_data_list)
+            self.process_deposit(state, deposit)
+
+        # activate bootstrap validators
+        for index, validator in enumerate(state.validators):
+            balance = state.balances[index]
+            validator.effective_balance = uint64(min(
+                int(balance) - int(balance) % self.EFFECTIVE_BALANCE_INCREMENT,
+                self.MAX_EFFECTIVE_BALANCE))
+            if validator.effective_balance == self.MAX_EFFECTIVE_BALANCE:
+                validator.activation_eligibility_epoch = self.GENESIS_EPOCH
+                validator.activation_epoch = self.GENESIS_EPOCH
+
+        state.genesis_validators_root = hash_tree_root(state.validators)
+        return state
+
+    def genesis_fork_versions(self):
+        """(previous_version, current_version) for a state born at this
+        fork — used by mock-genesis fixtures; later forks override."""
+        v = Bytes4(self.config.GENESIS_FORK_VERSION)
+        return (v, v)
+
+    def is_valid_genesis_state(self, state) -> bool:
+        if state.genesis_time < self.config.MIN_GENESIS_TIME:
+            return False
+        active = self.get_active_validator_indices(state, self.GENESIS_EPOCH)
+        return len(active) >= self.config.MIN_GENESIS_ACTIVE_VALIDATOR_COUNT
+
     # ------------------------------------------------------------------
     # state transition (beacon-chain.md "Beacon chain state transition")
     # ------------------------------------------------------------------
+    def state_transition(self, state, signed_block,
+                         validate_result: bool = True) -> None:
+        """Apply a signed block: process_slots to its slot, its proposer
+        signature, process_block, and the post-state root check.  Every
+        signature check goes through the seams (specs/base.py) to the BLS
+        shim, one scalar verify each: the reference's deferred signature
+        pipeline (`sigpipe.verify.block_scope`) is not ported yet."""
+        # opt-in incremental merkleization (ssz/incremental.py): track the
+        # hot state so every hash_tree_root below re-hashes only the
+        # block's dirty cone (no-op while the mode is disabled)
+        ssz_incremental.track(state)
+        block = signed_block.message
+        self.process_slots(state, block.slot)
+        if validate_result:
+            assert self.verify_block_signature(state, signed_block)
+        self.process_block(state, block)
+        if validate_result:
+            assert block.state_root == hash_tree_root(state)
+
+    def verify_block_signature(self, state, signed_block) -> bool:
+        proposer = state.validators[signed_block.message.proposer_index]
+        signing_root = self.compute_signing_root(
+            signed_block.message,
+            self.get_domain(state, self.DOMAIN_BEACON_PROPOSER))
+        return self.bls_verify(proposer.pubkey, signing_root,
+                               signed_block.signature)
+
     def process_slots(self, state, slot) -> None:
         assert state.slot < slot
         # opt-in incremental merkleization: track the state so each
@@ -868,3 +1037,203 @@ class Phase0Spec(BaseSpec):
         state.previous_epoch_attestations = state.current_epoch_attestations
         state.current_epoch_attestations = \
             type(state.current_epoch_attestations)()
+
+    # ------------------------------------------------------------------
+    # block processing (beacon-chain.md "Block processing")
+    # ------------------------------------------------------------------
+    def process_block(self, state, block) -> None:
+        self.process_block_header(state, block)
+        self.process_randao(state, block.body)
+        self.process_eth1_data(state, block.body)
+        self.process_operations(state, block.body)
+
+    def process_block_header(self, state, block) -> None:
+        # slot/proposer/parent consistency
+        assert block.slot == state.slot
+        assert block.slot > state.latest_block_header.slot
+        assert block.proposer_index == self.get_beacon_proposer_index(state)
+        assert block.parent_root == hash_tree_root(state.latest_block_header)
+        state.latest_block_header = self.BeaconBlockHeader(
+            slot=block.slot,
+            proposer_index=block.proposer_index,
+            parent_root=block.parent_root,
+            state_root=Bytes32(),  # overwritten next process_slot
+            body_root=hash_tree_root(block.body))
+        proposer = state.validators[block.proposer_index]
+        assert not proposer.slashed
+
+    def process_randao(self, state, body) -> None:
+        epoch = self.get_current_epoch(state)
+        proposer = state.validators[self.get_beacon_proposer_index(state)]
+        signing_root = self.compute_signing_root(
+            uint64(epoch), self.get_domain(state, self.DOMAIN_RANDAO))
+        assert self.bls_verify(proposer.pubkey, signing_root,
+                               body.randao_reveal)
+        mix = xor(self.get_randao_mix(state, epoch),
+                  self.hash(bytes(body.randao_reveal)))
+        state.randao_mixes[epoch % self.EPOCHS_PER_HISTORICAL_VECTOR] = mix
+
+    def process_eth1_data(self, state, body) -> None:
+        state.eth1_data_votes.append(body.eth1_data)
+        votes = [v for v in state.eth1_data_votes if v == body.eth1_data]
+        if (len(votes) * 2 > self.EPOCHS_PER_ETH1_VOTING_PERIOD
+                * self.SLOTS_PER_EPOCH):
+            state.eth1_data = body.eth1_data
+
+    def process_operations(self, state, body) -> None:
+        # all outstanding deposits must be processed, up to the block cap
+        assert len(body.deposits) == min(
+            self.MAX_DEPOSITS,
+            int(state.eth1_data.deposit_count - state.eth1_deposit_index))
+        for operation in body.proposer_slashings:
+            self.process_proposer_slashing(state, operation)
+        for operation in body.attester_slashings:
+            self.process_attester_slashing(state, operation)
+        for operation in body.attestations:
+            self.process_attestation(state, operation)
+        for operation in body.deposits:
+            self.process_deposit(state, operation)
+        for operation in body.voluntary_exits:
+            self.process_voluntary_exit(state, operation)
+
+    def process_proposer_slashing(self, state, proposer_slashing) -> None:
+        header_1 = proposer_slashing.signed_header_1.message
+        header_2 = proposer_slashing.signed_header_2.message
+        assert header_1.slot == header_2.slot
+        assert header_1.proposer_index == header_2.proposer_index
+        assert header_1 != header_2
+        proposer = state.validators[header_1.proposer_index]
+        assert self.is_slashable_validator(
+            proposer, self.get_current_epoch(state))
+        for signed_header in (proposer_slashing.signed_header_1,
+                              proposer_slashing.signed_header_2):
+            domain = self.get_domain(
+                state, self.DOMAIN_BEACON_PROPOSER,
+                self.compute_epoch_at_slot(signed_header.message.slot))
+            signing_root = self.compute_signing_root(
+                signed_header.message, domain)
+            assert self.bls_verify(proposer.pubkey, signing_root,
+                                   signed_header.signature)
+        self.slash_validator(state, header_1.proposer_index)
+
+    def process_attester_slashing(self, state, attester_slashing) -> None:
+        attestation_1 = attester_slashing.attestation_1
+        attestation_2 = attester_slashing.attestation_2
+        assert self.is_slashable_attestation_data(
+            attestation_1.data, attestation_2.data)
+        assert self.is_valid_indexed_attestation(state, attestation_1)
+        assert self.is_valid_indexed_attestation(state, attestation_2)
+
+        slashed_any = False
+        indices = set(int(i) for i in attestation_1.attesting_indices) \
+            & set(int(i) for i in attestation_2.attesting_indices)
+        for index in sorted(indices):
+            if self.is_slashable_validator(state.validators[index],
+                                           self.get_current_epoch(state)):
+                self.slash_validator(state, index)
+                slashed_any = True
+        assert slashed_any
+
+    def process_attestation(self, state, attestation) -> None:
+        data = attestation.data
+        assert data.target.epoch in (self.get_previous_epoch(state),
+                                     self.get_current_epoch(state))
+        assert data.target.epoch == self.compute_epoch_at_slot(data.slot)
+        assert (data.slot + self.MIN_ATTESTATION_INCLUSION_DELAY
+                <= state.slot <= data.slot + self.SLOTS_PER_EPOCH)
+        assert data.index < self.get_committee_count_per_slot(
+            state, data.target.epoch)
+
+        committee = self.get_beacon_committee(state, data.slot, data.index)
+        assert len(attestation.aggregation_bits) == len(committee)
+
+        pending_attestation = self.PendingAttestation(
+            data=data,
+            aggregation_bits=list(attestation.aggregation_bits),
+            inclusion_delay=uint64(state.slot - data.slot),
+            proposer_index=self.get_beacon_proposer_index(state))
+
+        if data.target.epoch == self.get_current_epoch(state):
+            assert data.source == state.current_justified_checkpoint
+            state.current_epoch_attestations.append(pending_attestation)
+        else:
+            assert data.source == state.previous_justified_checkpoint
+            state.previous_epoch_attestations.append(pending_attestation)
+
+        # committee signature
+        assert self.is_valid_indexed_attestation(
+            state, self.get_indexed_attestation(state, attestation))
+
+    def get_validator_from_deposit(self, pubkey, withdrawal_credentials,
+                                   amount):
+        effective_balance = uint64(min(
+            int(amount) - int(amount) % self.EFFECTIVE_BALANCE_INCREMENT,
+            self.MAX_EFFECTIVE_BALANCE))
+        return self.Validator(
+            pubkey=pubkey,
+            withdrawal_credentials=withdrawal_credentials,
+            activation_eligibility_epoch=self.FAR_FUTURE_EPOCH,
+            activation_epoch=self.FAR_FUTURE_EPOCH,
+            exit_epoch=self.FAR_FUTURE_EPOCH,
+            withdrawable_epoch=self.FAR_FUTURE_EPOCH,
+            effective_balance=effective_balance)
+
+    def add_validator_to_registry(self, state, pubkey,
+                                  withdrawal_credentials, amount) -> None:
+        state.validators.append(self.get_validator_from_deposit(
+            pubkey, withdrawal_credentials, amount))
+        state.balances.append(amount)
+
+    def apply_deposit(self, state, pubkey, withdrawal_credentials, amount,
+                      signature) -> None:
+        validator_pubkeys = [v.pubkey for v in state.validators]
+        if pubkey not in validator_pubkeys:
+            # new validator: the deposit signature (proof of possession)
+            # is verified against the *deposit* domain, not the state fork
+            deposit_message = self.DepositMessage(
+                pubkey=pubkey,
+                withdrawal_credentials=withdrawal_credentials,
+                amount=amount)
+            domain = self.compute_domain(self.DOMAIN_DEPOSIT)
+            signing_root = self.compute_signing_root(deposit_message, domain)
+            if self.bls_verify(pubkey, signing_root, signature):
+                self.add_validator_to_registry(
+                    state, pubkey, withdrawal_credentials, amount)
+        else:
+            index = validator_pubkeys.index(pubkey)
+            self.increase_balance(state, index, amount)
+
+    def process_deposit(self, state, deposit) -> None:
+        assert self.is_valid_merkle_branch(
+            leaf=hash_tree_root(deposit.data),
+            branch=deposit.proof,
+            depth=self.DEPOSIT_CONTRACT_TREE_DEPTH + 1,  # +1 for length mix-in
+            index=state.eth1_deposit_index,
+            root=state.eth1_data.deposit_root)
+        state.eth1_deposit_index = uint64(state.eth1_deposit_index + 1)
+        self.apply_deposit(
+            state,
+            pubkey=deposit.data.pubkey,
+            withdrawal_credentials=deposit.data.withdrawal_credentials,
+            amount=deposit.data.amount,
+            signature=deposit.data.signature)
+
+    def process_voluntary_exit(self, state, signed_voluntary_exit) -> None:
+        voluntary_exit = signed_voluntary_exit.message
+        validator = state.validators[voluntary_exit.validator_index]
+        assert self.is_active_validator(validator,
+                                        self.get_current_epoch(state))
+        assert self.get_current_epoch(state) >= voluntary_exit.epoch
+        assert validator.exit_epoch == self.FAR_FUTURE_EPOCH
+        assert (self.get_current_epoch(state) >= validator.activation_epoch
+                + self.config.SHARD_COMMITTEE_PERIOD)
+        domain = self.voluntary_exit_domain(state, voluntary_exit)
+        signing_root = self.compute_signing_root(voluntary_exit, domain)
+        assert self.bls_verify(validator.pubkey, signing_root,
+                               signed_voluntary_exit.signature)
+        self.initiate_validator_exit(state, voluntary_exit.validator_index)
+
+    def voluntary_exit_domain(self, state, voluntary_exit):
+        # deneb pins this to the capella fork version; phase0 uses the state
+        return self.get_domain(state, self.DOMAIN_VOLUNTARY_EXIT,
+                               voluntary_exit.epoch)

@@ -34,6 +34,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import consensus_specs_tpu_torch.ops.sha256_cuda\n"
         "import consensus_specs_tpu_torch.ops.epoch_sweep_cuda\n"
         "import consensus_specs_tpu_torch.specs.epoch_fast\n"
+        "import consensus_specs_tpu_torch.ops.bls381_cuda\n"
+        "import consensus_specs_tpu_torch.ops.bls_cuda\n"
+        "import consensus_specs_tpu_torch.utils.bls\n"
+        "import consensus_specs_tpu_torch.crypto.bls12_381\n"
         "from consensus_specs_tpu_torch.ops import cuda_build\n"
         "from consensus_specs_tpu_torch.specs import get_spec\n"
         "get_spec('phase0', 'minimal')\n"
@@ -75,5 +79,25 @@ def test_default_device_without_a_card_raises(monkeypatch):
             merkle.merkleize_chunks(chunks)
         with pytest.raises(RuntimeError, match="set_device"):
             merkle.merkleize_chunks(chunks * 4)   # the subtree hasher
+    finally:
+        port.set_device("cpu")
+
+
+def test_default_bls_backend_without_a_card_raises(monkeypatch):
+    """With set_device("cuda") and no card, a signature check on the
+    default device backend raises a RuntimeError: it never falls back to
+    the plain versions or to the native oracle."""
+    from consensus_specs_tpu_torch.crypto import bls12_381 as native
+    from consensus_specs_tpu_torch.utils import bls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sk, msg = 12345, b"a message"
+    pk, sig = native.SkToPk(sk), native.Sign(sk, msg)
+    port.set_device("cuda")
+    try:
+        assert bls.current_backend() == "cuda"
+        with pytest.raises(RuntimeError, match="set_device"):
+            bls.Verify(pk, msg, sig)
+        with pytest.raises(RuntimeError, match="set_device"):
+            bls.FastAggregateVerify([pk], msg, sig)
     finally:
         port.set_device("cpu")
