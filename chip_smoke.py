@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths on the card, the per-slot BeaconState root
+    python3 chip_smoke.py --only flush,block   (chosen phases, no result)
+
+Drives the port's five paths on the card, the per-slot BeaconState root
 (slice 1), incremental re-roots (slice 2), the phase0 epoch transition
-(slice 3) and phase0 block processing with every signature checked (slice
-4), and holds every kernel of those paths against its plain PyTorch
-version:
+(slice 3), phase0 block processing with every signature checked (slice 4)
+and the block's signature flush (slice 5), and holds every kernel of those
+paths against its plain PyTorch version:
 
 1. device: requires a CUDA card and prints its name and power limit;
-2. build: builds the six kernels, SHA-256 pair-hash and gather-hash, the
-   epoch sweep and the BLS12-381 pairing, G2 ladder and field kernels, from
-   the repository's sources, and prints the BLS kernels' registers and
-   stack (cuobjdump);
+2. build: builds the kernels, SHA-256 pair-hash and gather-hash, the
+   epoch sweep and the BLS12-381 pairing, G2 ladder, field, segment-sum, G1
+   ladder and fold kernels, from the repository's sources, and prints the
+   BLS kernels' registers and stack (cuobjdump);
 3. kernel: the pair-hash kernel against the plain torch version on the card,
    bit for bit, at 1, 255, 256, 257, 65,537, 2**17 and 2**20 pairs, with rows
    checked against hashlib, and the times of kernel (replayed from a CUDA
@@ -55,14 +57,28 @@ version:
    FastAggregateVerify over a 128-key committee (valid, invalid) and
    AggregateVerify over 8 messages on the shim's device backend, each
    verdict equal to the native oracle's;
-11. block: `block_case`, the same seeded state at slot 97 with real keys
+11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128 and 64
+   ragged segments up to 2,048, G2 at one segment of 1,024), the G1 ladder
+   (1,024 and 16,384 lanes of 64 bits) and the fold kernel with the Miller
+   product after it (k = 16 from 14 sets, and 256, valid and with one bad
+   set) against their plain torch versions on the card, bit for bit; at
+   k = 1,024 the verdict and the 1,025 legs against the host's integers;
+   the times of the block's shapes from a CUDA graph;
+12. flush: seeded flushes of 16 sets (set 8 bad) and 256 through
+   `scheduler.verify_sets` as the one-launch fold, the staged fold and
+   unfolded: the verdicts equal each other, the construction and the
+   native oracle, with N + 1 Miller legs folded and 2N unfolded;
+13. block: `block_case`, the same seeded state at slot 97 with real keys
    for its signers and a signed block at slot 98 (8 full-committee
    attestations, a proposer and an attester slashing: 14 signature
    checks), through `state_transition` with BLS on: the root must equal
    the host oracle and the JAX package's (POST_BLOCK_ROOT_98), every check
    must launch the ladder once and the pairing kernel's two launches once,
    and a copy with a tampered first attestation must be rejected there;
-   prints each part's seconds.
+   then the same with `sigpipe.enable()`: the same root, 14 seam hits, one
+   flush as one fold chain with no scalar ladder, and the tampered copy
+   rejected at its attestation after bisection; prints each part's
+   seconds.
 
 Each phase prints its seconds.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
@@ -73,6 +89,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import time
 import traceback
@@ -88,9 +105,16 @@ from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
 from consensus_specs_tpu_torch.crypto.fields import Q
 from consensus_specs_tpu_torch.ops import (
     bls381_cuda, bls_cuda, cuda_build, curve_torch, epoch_sweep,
-    epoch_sweep_cuda, fq, pairing_torch, sha256, sha256_cuda)
+    epoch_sweep_cuda, fq, g1_sweep, pairing_torch, sha256, sha256_cuda)
 from consensus_specs_tpu_torch.ops import fq_tower as ft
+from consensus_specs_tpu_torch.parallel import shard_verify
+from consensus_specs_tpu_torch import sigpipe
 from consensus_specs_tpu_torch.sigpipe import METRICS
+from consensus_specs_tpu_torch.sigpipe import cache as sig_cache
+from consensus_specs_tpu_torch.sigpipe import fold as sig_fold
+from consensus_specs_tpu_torch.sigpipe import scheduler as sig_scheduler
+from consensus_specs_tpu_torch.sigpipe import sets as sig_sets
+from consensus_specs_tpu_torch.sigpipe.sets import SignatureSet
 from consensus_specs_tpu_torch.specs import epoch_fast, get_spec
 from consensus_specs_tpu_torch.ssz import incremental, merkle, uint64
 from consensus_specs_tpu_torch.ssz import uint_to_bytes
@@ -187,9 +211,10 @@ def nvidia_smi(query):
         timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() on the card, by CUDA events, after warm-up."""
-    for _ in range(2):
+def cuda_ms(fn, reps, warmup=2):
+    """Mean milliseconds of fn() on the card, by CUDA events, after
+    `warmup` calls."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -249,8 +274,9 @@ def device_phase():
 def build_phase():
     cuda_build.build()
     print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_pairing, "
-          f"bls381_g2 and bls381_field built by {cuda_build.build_route} "
-          f"into {cuda_build.BUILD_DIR}")
+          f"bls381_g2, bls381_field, bls381_msm (segment sums, G1 ladder) "
+          f"and bls381_fold built by {cuda_build.build_route} into "
+          f"{cuda_build.BUILD_DIR}")
     print_resource_usage()
 
 
@@ -261,7 +287,8 @@ def print_resource_usage():
     from torch.utils import cpp_extension
     tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
                         "cuobjdump")
-    for name in ("bls381_pairing", "bls381_g2", "bls381_field"):
+    for name in ("bls381_pairing", "bls381_g2", "bls381_field", "bls381_msm",
+                 "bls381_fold"):
         objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
                 if f.startswith(name) and f.endswith(".o")]
         if not objs or not os.path.exists(tool):
@@ -270,13 +297,22 @@ def print_resource_usage():
         out = subprocess.run(
             [tool, "-res-usage", os.path.join(cuda_build.BUILD_DIR, objs[0])],
             capture_output=True, text=True, timeout=120).stdout
+        kernel = ""
         for line in out.splitlines():
+            if "Function" in line:
+                # the kernel's name and field inside its mangled symbol
+                start = line.rfind("bls381_")
+                end = line.find("_kernel", start) + len("_kernel")
+                field = re.match(r"I\d+(\w+?)E", line[end:])
+                kernel = line[start:end] + (f"<{field.group(1)}>"
+                                            if field else "")
+                continue
             if "REG:" not in line:
                 continue
             regs = int(line.split("REG:")[1].split()[0])
             threads = 65536 // max(regs, 1) // 32 * 32
-            print(f"{name}: {line.strip()} -> at most {min(threads, 2048)} "
-                  f"resident threads an SM by registers")
+            print(f"{name} {kernel}: {line.strip()} -> at most "
+                  f"{min(threads, 2048)} resident threads an SM by registers")
 
 
 def bound(n_pairs, bytes_per_pair, n_sms, max_mhz):
@@ -1529,7 +1565,10 @@ class BlockRecorder:
     decompression and subgroup checks), hash-to-field with SSWU and the
     isogeny, and the card's BLS work (the ladder, the affine normalization
     and the pairing check, each timed to a synchronize, so the host clock
-    covers the kernels, their uploads and downloads)."""
+    covers the kernels, their uploads and downloads); with the signature
+    pipeline on, the collection of the block's sets (its committee scans
+    inside it), the committee sums and the one-launch fold (its host
+    hash-to-field inside it)."""
 
     def __init__(self, spec):
         self.seconds = {}
@@ -1548,6 +1587,14 @@ class BlockRecorder:
                    sync=True)
         self._wrap("hash_to_g2_batch", bls_cuda, "hash_to_g2_batch")
         self._wrap("process_slots", spec, "process_slots", instance=True)
+        # the signature pipeline's parts
+        self._wrap("collection", sig_sets, "collect_block_sets")
+        self._wrap("host decode", sig_cache, "_load_pubkey")
+        self._wrap("host decode", sig_scheduler, "_load_signature")
+        self._wrap("card: committee sums", g1_sweep, "g1_add_sweep",
+                   sync=True)
+        self._wrap("card: fold flush", shard_verify, "pairing_fold",
+                   sync=True)
 
     def _wrap(self, label, owner, name, instance=False, sync=False):
         fn = getattr(owner, name)
@@ -1604,6 +1651,8 @@ def block_phase():
           f"built in {time.perf_counter() - t0:.6f} s (its state root from "
           f"one transition of a copy with BLS off)", flush=True)
     tampered_pre = state.copy()
+    sigpipe_pre = state.copy()
+    sigpipe_tampered_pre = state.copy()
     bls.use_backend("cuda")
     bls.bls_active = True
     plain = [w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
@@ -1640,7 +1689,8 @@ def block_phase():
     check(per_wrapper["miller"] == per_wrapper["product_final"] == checks,
           f"block: pairing launches {per_wrapper['miller']} + "
           f"{per_wrapper['product_final']} for {checks} checks")
-    check(all(v > 0 for v in launches.values()),
+    scalar_kernels = ("bls381_pairing", "bls381_g2", "bls381_field")
+    check(all(launches[name] > 0 for name in scalar_kernels),
           f"block: a BLS kernel was not launched: {launches}")
     sec = rec.seconds
     print(f"block: state_transition {block_s:.6f} s with BLS on: "
@@ -1671,12 +1721,567 @@ def block_phase():
               f"({time.perf_counter() - t0:.6f} s)")
     else:
         check(False, "block: the tampered copy was accepted")
-    return launches
+    sig_launches = sigpipe_block(spec, sigpipe_pre, sigpipe_tampered_pre,
+                                 signed, bad, n_checks)
+    return launches, sig_launches
 
 
-def main():
+def sigpipe_block(spec, state, tampered_pre, signed, bad, n_checks):
+    """The same block with `sigpipe.enable()`: one flush of its checks on
+    the card (the committee sums, the one-launch fold), the seams reading
+    its verdicts.  The root must equal the host oracle and the JAX
+    package's, every check must hit the verdict map, the flush must be one
+    fold chain with no scalar check's ladder and no plain version, and
+    the tampered copy must be rejected at its attestation after
+    bisection.  Returns the BLS kernels' launches of the valid block."""
+    plain = _plain_counts()
+    sig_cache.clear()
+    METRICS.reset()
+    sigpipe.enable()
+    rec = BlockRecorder(spec)
+    try:
+        _reset_bls_counts()
+        t0 = time.perf_counter()
+        spec.state_transition(state, signed)
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+        launches = _flush_counts()
+        per_kernel = _bls_counts()
+        snap = METRICS.snapshot()
+    finally:
+        rec.close()
+        sigpipe.disable()
+    check(_plain_counts() == plain,
+          "sigpipe block: a wrapper took its plain version")
+    root = bytes(spec.hash_tree_root(state))
+    oracle = host_oracle(state)
+    check(root == oracle and root.hex() == POST_BLOCK_ROOT_98,
+          f"sigpipe block: root {root.hex()}, host oracle {oracle.hex()}, "
+          f"the JAX package's {POST_BLOCK_ROOT_98}")
+    check(snap.get("seam_hits") == n_checks
+          and snap.get("seam_misses", 0) == 0,
+          f"sigpipe block: {snap.get('seam_hits')} seam hits and "
+          f"{snap.get('seam_misses', 0)} misses, expected {n_checks} and 0")
+    check(launches["fold_lanes"] == 2 and launches["segment_sum"] >= 1
+          and launches["g2_ladder"] == 0 and launches["miller"] == 1
+          and launches["product_final"] == 2,
+          f"sigpipe block: launches {launches}, expected one fold chain "
+          f"and no scalar check")
+    check(snap["miller_loops_per_flush"]["total"] == n_checks + 1,
+          f"sigpipe block: {snap['miller_loops_per_flush']} legs")
+    sec, calls = rec.seconds, rec.calls
+    print(f"sigpipe block: state_transition {block_s:.6f} s with BLS on "
+          f"and the pipeline on: process_slots 97 -> 98 "
+          f"{sec.get('process_slots', 0):.6f} s, collection of "
+          f"{snap['signatures_scheduled']} sets "
+          f"{sec.get('collection', 0):.6f} s, committee scans "
+          f"{sec.get('committee scans', 0):.6f} s "
+          f"({calls.get('committee scans', 0)} scans of the registry), host "
+          f"decode {sec.get('host decode', 0):.6f} s "
+          f"({calls.get('host decode', 0)} points), the flush "
+          f"{snap['verify_sets_sec']:.6f} s: card: committee sums "
+          f"{sec.get('card: committee sums', 0):.6f} s, fold flush "
+          f"{sec.get('card: fold flush', 0):.6f} s (of which hash-to-field "
+          f"with SSWU and isogeny "
+          f"{sec.get('hash-to-field, SSWU, isogeny', 0):.6f} s)")
+    print(f"sigpipe block: {snap['seam_hits']} seam hits, 0 misses, "
+          f"{snap['miller_loops_per_flush']['total']} Miller legs in one "
+          f"flush; launches {launches}")
+    print(f"sigpipe block: root at slot {BLOCK_SLOT} {root.hex()} == host "
+          f"oracle == JAX package")
+
+    METRICS.reset()
+    sigpipe.enable()
+    t0 = time.perf_counter()
+    try:
+        spec.state_transition(tampered_pre, bad)
+    except AssertionError as err:
+        frames = [f.name for f in traceback.extract_tb(err.__traceback__)]
+        check(frames[-1] == "process_attestation",
+              f"sigpipe block: tampered copy rejected at {frames[-3:]}")
+        check(METRICS.count("fused_batch_failures") == 1,
+              "sigpipe block: the tampered flush did not fail")
+        print(f"sigpipe block: the copy with a tampered first attestation "
+              f"is rejected at process_attestation after "
+              f"{METRICS.count('bisect_dispatches')} bisection probes "
+              f"({time.perf_counter() - t0:.6f} s)")
+    else:
+        check(False, "sigpipe block: the tampered copy was accepted")
+    finally:
+        sigpipe.disable()
+    return per_kernel
+
+
+# ---------------------------------------------------------------------------
+# the signature flush: its kernels and scheduler.verify_sets
+# ---------------------------------------------------------------------------
+
+FLUSH_COMMITTEES = (1, 2, 4, 1)   # the pubkeys of set i: [i % 4]
+FLUSH_ROOTS = 16                  # distinct signing roots a flush
+FLUSH_SK_BASE = 0x5EED5000        # the first signer's secret key
+FLUSH_SIZES = (16, 256)           # sets a flush in phase "flush"
+FLUSH_BAD = 8                     # the bad set of the 16-set flush
+ORACLE_SAMPLE = 16                # sets of a larger flush the oracle checks
+K1_BLOCK = (8, 128)               # a phase0 block's committee sums
+K1_RAGGED = (64, 2048)            # ragged lists up to MAX_VALIDATORS_PER_COMMITTEE
+K1_G2 = 1024                      # one G2 segment (a flush's signature sum)
+K1_PLAIN_SEGMENTS = 8             # plain halving segments a call on the card
+K2_SIZES = (1024, 16384)
+K2_TIMED = 256                    # a full block's weighting sweep
+K4_SIZES = ((14, 16), (256, 256))  # (sets, lanes): the block's flush pads
+K4_ORACLE = 1024
+G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS = 7, 16
+AFFINE_G1 = FQ_INV + 4            # inverse, square, three products
+AFFINE_G2 = FQ2_INV + 2 + 3 * 3
+
+
+def ladder_products(bits, double, add):
+    """Fq products of msb-first ladders over the rows of `bits` (numpy
+    [n, nbits]): a doubling a bit, an add a set bit but the first (which
+    lands on infinity and returns at once)."""
+    ones = bits.sum(axis=1)
+    return int(bits.shape[0] * bits.shape[1] * double
+               + np.maximum(ones - 1, 0).sum() * add)
+
+
+def flush_case(n, bad=()):
+    """n seeded signature sets of FLUSH_ROOTS roots: set i signs root
+    i % 16 with the keys FLUSH_SK_BASE + ... (a committee of
+    FLUSH_COMMITTEES[i % 4] consecutive keys, its signature Sign(sum of
+    keys)); a set in `bad` signs with the sum plus one.  Returns (sets,
+    aggregate G1 points, signature G2 points, seeded 64-bit
+    coefficients)."""
+    rng = np.random.default_rng([SEED, 9, n])
+    g1 = cv.g1_generator()
+    roots = [rng.bytes(32) for _ in range(FLUSH_ROOTS)]
+    hashes = [h2c.hash_to_g2(r) for r in roots]
+    sets, aggs, sigs = [], [], []
+    sk = FLUSH_SK_BASE
+    point = g1 * sk
+    for i in range(n):
+        size = FLUSH_COMMITTEES[i % len(FLUSH_COMMITTEES)]
+        pks, agg = [], cv.g1_infinity()
+        for _ in range(size):
+            pks.append(cv.g1_to_bytes(point))
+            agg = agg + point
+            point = point + g1
+        total = size * sk + size * (size - 1) // 2
+        sk += size
+        sig = hashes[i % FLUSH_ROOTS] * (total + (1 if i in bad else 0))
+        sets.append(SignatureSet(
+            pubkeys=tuple(pks), signing_root=roots[i % FLUSH_ROOTS],
+            signature=cv.g2_to_bytes(sig), kind="attestation",
+            origin=("attestation", i)))
+        aggs.append(agg)
+        sigs.append(sig)
+    coeffs = [int(c) for c in rng.integers(1, 2**63, n, dtype=np.uint64)]
+    return sets, aggs, sigs, coeffs
+
+
+def _with_bad_signature(inputs, sigs):
+    """The fold's inputs with set FLUSH_BAD's signature moved off by G2 (a
+    valid point, the wrong signature)."""
+    aggP, cbits, hP, sP = inputs
+    row = curve_torch.g2_pack([sigs[FLUSH_BAD] + cv.g2_generator()], CARD)
+    bad = tuple(c.clone() for c in sP)
+    for c, r in zip(bad, row):
+        c[FLUSH_BAD] = r[0]
+    return aggP, cbits, hP, bad
+
+
+def native_verdicts(sets, indices):
+    return {i: bls12_381.FastAggregateVerify(
+        list(sets[i].pubkeys), sets[i].signing_root, sets[i].signature)
+        for i in indices}
+
+
+def _plain_halving(F, pt):
+    """bls381_cuda.halving_sum on the card, K1_PLAIN_SEGMENTS segments a
+    call (bounds the plain products' intermediates)."""
+    outs = [bls381_cuda.halving_sum(F, tuple(
+        c[i:i + K1_PLAIN_SEGMENTS] for c in pt))
+        for i in range(0, pt[0].shape[0], K1_PLAIN_SEGMENTS)]
+    return tuple(torch.cat(c) for c in zip(*outs))
+
+
+def _segments(group, lengths, width):
+    """Jacobian limbs on the card, [len(lengths), width] points: segment j
+    a run of lengths[j] consecutive multiples of the generator from a
+    seeded start, padded with infinity."""
+    rng = np.random.default_rng([SEED, 10, width, len(lengths)])
+    gen = cv.g1_generator() if group == "g1" else cv.g2_generator()
+    inf = cv.g1_infinity() if group == "g1" else cv.g2_infinity()
+    flat = []
+    for n in lengths:
+        p = gen * int(rng.integers(1, 2**62))
+        for _ in range(n):
+            flat.append(p)
+            p = p + gen
+        flat.extend([inf] * (width - n))
+    pack = curve_torch.g1_pack if group == "g1" else curve_torch.g2_pack
+    return tuple(c.reshape((len(lengths), width) + c.shape[1:])
+                 for c in pack(flat, CARD))
+
+
+def _fold_chain_plain(aggP, cbits, hP, sP):
+    """The plain versions of the fold's chain on the card: the lanes, the
+    Miller loops and their product without the final exponentiation."""
+    hbits = pairing_torch._h_eff_bits(CARD)
+    pairs = pairing_torch._fold_lanes_plain(
+        aggP, cbits, hP, sP, hbits, pairing_torch._fold_consts(CARD))
+    f = pairing_torch.miller_loop(*pairs)
+    return pairs, pairing_torch.product_final(f[None], final=False)[0][0]
+
+
+def fold_products(k, n_sets, bits):
+    """Fq products of the fold's lanes, sum and tail at k lanes, n_sets of
+    them live, over the coefficient bit rows `bits` (numpy [k, 64])."""
+    h_bits = bls_cuda._H_EFF_BITS[None]
+    live = bits[:n_sets]
+    lanes = (ladder_products(live, G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS)
+             + n_sets * ladder_products(h_bits, G2_DOUBLE_PRODUCTS,
+                                        G2_ADD_PRODUCTS)
+             + ladder_products(live, G2_DOUBLE_PRODUCTS, G2_ADD_PRODUCTS)
+             + n_sets * (AFFINE_G1 + AFFINE_G2))
+    return lanes + (n_sets - 1) * G2_ADD_PRODUCTS + AFFINE_G2
+
+
+def _legs_against_host(pairs, aggs, coeffs, pre, sigs):
+    """How many of the fold's k + 1 legs on the card differ from the
+    host's: (c_i agg_i, h_eff Q_i) and (-g1, sum_i c_i sig_i), affine, over
+    Python ints (a leg with an infinity side must come out skipped)."""
+    xp, yp, xq, yq, skip = (t.cpu() for t in pairs)
+    cleared = {}
+    S = cv.g2_infinity()
+    want = []
+    for agg, c, q, sig in zip(aggs, coeffs, pre, sigs):
+        qa = q.affine()
+        key = (qa[0].c0, qa[0].c1, qa[1].c0, qa[1].c1)
+        if key not in cleared:
+            cleared[key] = q * h2c.H_EFF
+        S = S + sig * c
+        want.append((agg * c, cleared[key]))
+    want.append((-cv.g1_generator(), S))
+    got = zip(zip(fq.unpack_mont(xp), fq.unpack_mont(yp)),
+              zip(ft.fq2_unpack_mont(xq), ft.fq2_unpack_mont(yq)),
+              skip.tolist())
+    wrong = 0
+    for (gp, gq, skipped), (w, h) in zip(got, want):
+        if w.is_infinity() or h.is_infinity():
+            wrong += not skipped
+            continue
+        (wx, wy), (hx, hy) = w.affine(), h.affine()
+        wrong += skipped or gp != (wx.v, wy.v) or (
+            (gq[0].c0, gq[0].c1, gq[1].c0, gq[1].c1)
+            != (hx.c0, hx.c1, hy.c0, hy.c1))
+    return wrong
+
+
+@phase("flush kernels")
+def flush_kernels_phase(n_sms, max_mhz):
+    """The flush's kernels against their plain torch versions on the card,
+    bit for bit: K1 (segment sums) on G1 at a block's 8 x 128 and 64 ragged
+    segments up to 2,048, on G2 at one segment of 1,024; K2 (the G1
+    ladder) at 1,024 and 16,384 lanes of 64 bits; K4 (the fold's lanes,
+    with its K1 and its tail) and the Miller product after it at k = 16
+    (14 sets and two padded rows) and 256, valid and with one bad set.  At
+    k = 1,024 the verdict and the 1,025 legs against the host's integer
+    arithmetic.  Then the times of the block's shapes from a CUDA graph,
+    beside the plain versions' and the operation bounds."""
+    max_err = {"bls381_segment_sum": 0, "bls381_g1_ladder": 0,
+               "bls381_fold": 0}
+    t0 = time.perf_counter()
+    cases = {"G1 8 x 128": ("g1", [K1_BLOCK[1]] * K1_BLOCK[0],
+                            K1_BLOCK[1])}
+    rng = np.random.default_rng([SEED, 11])
+    ragged = [int(x) for x in rng.integers(0, K1_RAGGED[1], K1_RAGGED[0])]
+    ragged[:3] = [K1_RAGGED[1], 1, 0]
+    cases[f"G1 {K1_RAGGED[0]} ragged up to {K1_RAGGED[1]}"] = (
+        "g1", ragged, K1_RAGGED[1])
+    cases[f"G2 1 x {K1_G2}"] = ("g2", [K1_G2], K1_G2)
+    segs = {}
+    for name, (group, lengths, width) in cases.items():
+        pt = _segments(group, lengths, width)
+        F = curve_torch.F1 if group == "g1" else curve_torch.F2
+        got = bls381_cuda.segment_sum(pt)
+        want = _plain_halving(F, pt)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err["bls381_segment_sum"] = max(max_err["bls381_segment_sum"],
+                                            err)
+        check(err == 0, f"segment_sum {name} != plain ({err})")
+        print(f"bls381_segment_sum {name}: == plain bit for bit "
+              f"({time.perf_counter() - t0:.6f} s into the phase)",
+              flush=True)
+        segs[name] = pt
+
+    g1 = cv.g1_generator()
+    for n in K2_SIZES:
+        pts = _segments("g1", [1] * n, 1)
+        pt = tuple(c[:, 0] for c in pts)
+        scal = [int(c) for c in np.random.default_rng([SEED, 12, n]).integers(
+            0, 2**63, n, dtype=np.uint64) * 2 + 1]
+        bits = curve_torch.scalars_to_bits(scal, 64, CARD)
+        got = bls381_cuda.g1_ladder(pt, bits)
+        want = curve_torch.point_scalar_mul(curve_torch.F1, pt, bits)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err["bls381_g1_ladder"] = max(max_err["bls381_g1_ladder"], err)
+        check(err == 0, f"g1_ladder != plain at {n} lanes ({err})")
+        print(f"bls381_g1_ladder: == plain bit for bit at {n} lanes of 64 "
+              f"bits ({time.perf_counter() - t0:.6f} s into the phase)",
+              flush=True)
+
+    for n_sets, k in K4_SIZES:
+        _sets, aggs, sigs, coeffs = flush_case(n_sets)
+        valid = shard_verify.fold_inputs(
+            aggs, coeffs, [s.signing_root for s in _sets], sigs)
+        check(valid[0][0].shape[0] == k, f"fold at {n_sets} sets: "
+              f"{valid[0][0].shape[0]} lanes, expected {k}")
+        for bad in (False, True):
+            inputs = _with_bad_signature(valid, sigs) if bad else valid
+            got = pairing_torch.fold_partial_products(*inputs)
+            _prod, ok = bls381_cuda.product_final(got[None, None])
+            pairs_plain, want = _fold_chain_plain(*inputs)
+            pairs = bls381_cuda.fold_lanes(
+                *inputs, pairing_torch._h_eff_bits(CARD),
+                pairing_torch._fold_consts(CARD))
+            torch.cuda.synchronize()
+            err = max(_max_err(got, want), _max_err(pairs, pairs_plain))
+            max_err["bls381_fold"] = max(max_err["bls381_fold"], err)
+            check(err == 0, f"fold at k = {k} != plain ({err})")
+            check(bool(ok[0]) == (not bad),
+                  f"fold at k = {k}: verdict {bool(ok[0])}, bad {bad}")
+            print(f"bls381_fold: lanes and partial product == plain bit "
+                  f"for bit at k = {k} ({n_sets} sets), verdict "
+                  f"{bool(ok[0])} ({'one bad set' if bad else 'valid'}; "
+                  f"{time.perf_counter() - t0:.6f} s into the phase)",
+                  flush=True)
+
+    _sets, aggs, sigs, coeffs = flush_case(K4_ORACLE)
+    valid = shard_verify.fold_inputs(
+        aggs, coeffs, [s.signing_root for s in _sets], sigs)
+    pairs = bls381_cuda.fold_lanes(*valid, pairing_torch._h_eff_bits(CARD),
+                                   pairing_torch._fold_consts(CARD))
+    pre = curve_torch.g2_unpack(tuple(c.cpu() for c in valid[2]))
+    wrong = _legs_against_host(pairs, aggs, coeffs, pre, sigs)
+    check(wrong == 0, f"fold at k = {K4_ORACLE}: {wrong} legs differ from "
+          f"the host's")
+    for bad in (False, True):
+        inputs = _with_bad_signature(valid, sigs) if bad else valid
+        ok = pairing_torch.fq12_product_is_one(
+            pairing_torch.fold_partial_products(*inputs)[None])
+        check(ok == (not bad), f"fold at k = {K4_ORACLE}: verdict {ok}, "
+              f"bad {bad}")
+        print(f"bls381_fold at k = {K4_ORACLE}: "
+              f"{'' if bad else f'{K4_ORACLE + 1} legs == the host integer arithmetic, '}"
+              f"verdict {ok} ({'one bad set' if bad else 'valid'}; "
+              f"{time.perf_counter() - t0:.6f} s into the phase)", flush=True)
+
+    # times at the block's shapes: its committee sums, a full block's
+    # weighting sweep, its flush's fold (14 sets, 16 lanes)
+    times = {}
+    pt = segs["G1 8 x 128"]
+    n_seg, width = K1_BLOCK
+    times["bls381_segment_sum"] = (
+        graph_ms(lambda: bls381_cuda.segment_sum(pt), 10),
+        cuda_ms(lambda: _plain_halving(curve_torch.F1, pt), 1),
+        *op_bound(n_seg * (width - 1) * G1_ADD_PRODUCTS,
+                  (n_seg * width + n_seg) * 36 * 4, n_sms, max_mhz))
+    pts = _segments("g1", [1] * K2_TIMED, 1)
+    pt1 = tuple(c[:, 0] for c in pts)
+    scal = [int(c) for c in np.random.default_rng([SEED, 13]).integers(
+        1, 2**63, K2_TIMED, dtype=np.uint64)]
+    bits = curve_torch.scalars_to_bits(scal, 64, CARD)
+    times["bls381_g1_ladder"] = (
+        graph_ms(lambda: bls381_cuda.g1_ladder(pt1, bits), 10),
+        cuda_ms(lambda: curve_torch.point_scalar_mul(curve_torch.F1, pt1,
+                                                     bits), 1),
+        *op_bound(ladder_products(bits.cpu().numpy(), G1_DOUBLE_PRODUCTS,
+                                  G1_ADD_PRODUCTS),
+                  K2_TIMED * (36 * 2 * 4 + 64), n_sms, max_mhz))
+    n_sets, k = K4_SIZES[0]
+    _sets, aggs, sigs, coeffs = flush_case(n_sets)
+    inputs = shard_verify.fold_inputs(
+        aggs, coeffs, [s.signing_root for s in _sets], sigs)
+    hbits = pairing_torch._h_eff_bits(CARD)
+    consts = pairing_torch._fold_consts(CARD)
+    lane_bytes = (36 + 72 + 72 + 8) * 4 * k + len(bls_cuda._H_EFF_BITS) \
+        + (24 + 48 + 1) * 4 * (k + 1)
+    times["bls381_fold"] = (
+        graph_ms(lambda: bls381_cuda.fold_lanes(*inputs, hbits, consts), 3),
+        cuda_ms(lambda: pairing_torch._fold_lanes_plain(
+            *inputs, hbits, consts), 1, warmup=0),
+        *op_bound(fold_products(k, n_sets, inputs[1].cpu().numpy()),
+                  lane_bytes, n_sms, max_mhz))
+    chain_ms = graph_ms(
+        lambda: pairing_torch.fold_partial_products(*inputs), 3)
+    verdict_ms = graph_ms(lambda: bls381_cuda.product_final(
+        pairing_torch.fold_partial_products(*inputs)[None, None]), 3)
+    g2_pts = _segments("g2", [1] * k, 1)
+    g2_pt = tuple(c[:, 0] for c in g2_pts)
+    g2_bits = curve_torch.scalars_to_bits(coeffs + [0] * (k - n_sets), 64,
+                                          CARD)
+
+    def mexp():
+        return bls381_cuda.segment_sum(tuple(
+            c[None] for c in bls381_cuda.g2_ladder(g2_pt, g2_bits)))
+
+    def mexp_plain():
+        prods = curve_torch.point_scalar_mul(curve_torch.F2, g2_pt, g2_bits)
+        return bls381_cuda.halving_sum(curve_torch.F2,
+                                       tuple(c[None] for c in prods))
+    check(_max_err(mexp(), mexp_plain()) == 0,
+          "g2_multi_exp at the block's shape != plain")
+    mexp_ms = graph_ms(mexp, 3)
+    mexp_plain_ms = cuda_ms(mexp_plain, 1, warmup=0)
+    # the ladders, then the sum's adds of the 14 live products
+    mexp_bound, mexp_by = op_bound(
+        ladder_products(g2_bits.cpu().numpy(), G2_DOUBLE_PRODUCTS,
+                        G2_ADD_PRODUCTS) + (n_sets - 1) * G2_ADD_PRODUCTS,
+        k * (72 * 4 + 64) + 72 * 4, n_sms, max_mhz)
+    for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
+        print(f"{name} at the block's shape: {ms:.6f} ms from a CUDA "
+              f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
+              f"ms by {bound_by}; no PyTorch call computes it, so no "
+              f"library time")
+    print(f"the block's one-launch fold (14 sets, 16 lanes): the fold's "
+          f"lanes, sum and tail, the Miller loops and their product "
+          f"{chain_ms:.6f} ms, with the final exponentiation "
+          f"{verdict_ms:.6f} ms, from a CUDA graph; g2_multi_exp of 14 "
+          f"signatures padded to 16 (G2 ladder of 64 bits, then K1, == "
+          f"plain bit for bit) {mexp_ms:.6f} ms, plain torch "
+          f"{mexp_plain_ms:.6f} ms, bound {mexp_bound:.6f} ms by {mexp_by}")
+    return max_err, times
+
+
+def _flush_counts():
+    return {w.__name__: w.launches
+            for ws in bls381_cuda.WRAPPERS.values() for w in ws}
+
+
+def _plain_counts():
+    return [w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
+            for w in ws]
+
+
+FLUSH_VARIANTS = ("one-launch fold", "staged fold", "unfolded")
+
+
+def run_flush(sets, variant):
+    """verify_sets over `sets` in one of FLUSH_VARIANTS, with fresh
+    aggregate sums (decoded pubkeys stay cached) and the counts set to 0
+    just before: (verdicts, seconds, metrics snapshot, launches)."""
+    sig_fold.FOLD_MODE = "off" if variant == "unfolded" else "on"
+    pairing_torch.PAIRING_MODE = ("staged" if variant == "staged fold"
+                                  else "fused")
+    try:
+        sig_cache.AGGREGATES.clear()
+        METRICS.reset()
+        _reset_bls_counts()
+        t0 = time.perf_counter()
+        verdicts = sig_scheduler.verify_sets(sets)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return verdicts, seconds, METRICS.snapshot(), _flush_counts()
+    finally:
+        sig_fold.reset_mode()
+        pairing_torch.reset_mode()
+
+
+@phase("flush")
+def flush_phase():
+    """Seeded flushes through `scheduler.verify_sets` on the device
+    backend, at 16 sets (the one at index 8 bad) and 256 (all valid), in
+    the three variants: the one-launch fold, the staged fold (PAIRING_MODE
+    "staged": K2, the G2 fold, the pairing check) and the unfolded flush
+    (FOLD_VERIFY off: K2 at 2N, the pairing check).  The verdicts of the
+    three must equal each other, the construction and the native oracle
+    (every set at 16, ORACLE_SAMPLE seeded sets and the bad one at 256);
+    the legs must be N + 1 folded and 2N unfolded; the bad set must be
+    isolated alone.  Returns the K2 launches of the staged and unfolded
+    runs."""
+    bls.use_backend("cuda")
+    bls.bls_active = True
+    plain = _plain_counts()
+    g1_ladder_launches = 0
+    for n in FLUSH_SIZES:
+        bad = (FLUSH_BAD,) if n == 16 else ()
+        sets, _aggs, _sigs, _coeffs = flush_case(n, bad)
+        expected = [i not in bad for i in range(n)]
+        sample = range(n) if n <= ORACLE_SAMPLE else sorted(
+            {*np.random.default_rng([SEED, 14, n]).choice(
+                n, ORACLE_SAMPLE, replace=False).tolist(), *bad})
+        t0 = time.perf_counter()
+        oracle = native_verdicts(sets, sample)
+        check(all(oracle[i] == expected[i] for i in sample),
+              f"flush {n}: the native oracle disagrees with the "
+              f"construction: {oracle}")
+        print(f"flush {n}: native oracle on {len(sample)} sets == the "
+              f"construction ({time.perf_counter() - t0:.6f} s)", flush=True)
+        for variant in FLUSH_VARIANTS:
+            verdicts, seconds, snap, launches = run_flush(sets, variant)
+            legs = snap["miller_loops_per_flush"]["total"]
+            want_legs = 2 * n if variant == "unfolded" else n + 1
+            check(verdicts == expected,
+                  f"flush {n} {variant}: verdicts differ at "
+                  f"{[i for i, v in enumerate(verdicts) if v != expected[i]]}")
+            check(legs == want_legs,
+                  f"flush {n} {variant}: {legs} legs, expected {want_legs}")
+            if variant == "one-launch fold":
+                check(launches["fold_lanes"] == 2
+                      and launches["segment_sum"] >= 2
+                      and launches["g1_ladder"] == 0,
+                      f"flush {n} {variant}: launches {launches}")
+            else:
+                check(launches["fold_lanes"] == 0
+                      and launches["g1_ladder"] >= 1,
+                      f"flush {n} {variant}: launches {launches}")
+                g1_ladder_launches += launches["g1_ladder"]
+            print(f"flush {n} {variant}: verdicts == construction == "
+                  f"oracle ({'set 8 isolated, ' if bad else ''}"
+                  f"{snap.get('bisect_dispatches', 0)} bisection probes), "
+                  f"{legs} Miller legs, {seconds:.6f} s; launches "
+                  f"{launches}", flush=True)
+    check(_plain_counts() == plain, "flush: a wrapper took its plain version")
+    return g1_ladder_launches
+
+
+PHASES = ("kernel", "main path", "incremental", "gather kernel", "epoch",
+          "epoch kernel", "bls kernels", "bls", "flush kernels", "flush",
+          "block")
+
+
+def main(argv=None):
+    """Every phase, then the kernels' line, the card and the ok line.
+    `--only name,name` (names of PHASES) runs those phases alone after the
+    device and build phases, for iterating on one path, and prints no
+    result lines."""
+    import sys
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+        unknown = [name for name in only if name not in PHASES]
+        check(not unknown, f"unknown phases {unknown}; known: {PHASES}")
+    elif argv:
+        check(False, f"usage: chip_smoke.py [--only phase,phase]; got {argv}")
     card, n_sms, max_mhz = device_phase()
     build_phase()
+    if only is not None:
+        runs = {
+            "kernel": lambda: kernel_phase(n_sms, max_mhz),
+            "main path": main_path_phase, "incremental": incremental_phase,
+            "epoch": epoch_phase,
+            "epoch kernel": lambda: epoch_kernel_phase(n_sms, max_mhz),
+            "bls kernels": lambda: bls_kernels_phase(n_sms, max_mhz),
+            "bls": bls_phase,
+            "flush kernels": lambda: flush_kernels_phase(n_sms, max_mhz),
+            "flush": flush_phase, "block": block_phase}
+        for name in only:
+            check(name in runs, f"phase {name} cannot run alone")
+            runs[name]()
+        return
     max_err, times = kernel_phase(n_sms, max_mhz)
     launches = main_path_phase()
     gather_launches, largest = incremental_phase()
@@ -1685,19 +2290,35 @@ def main():
     epoch_err, e = epoch_kernel_phase(n_sms, max_mhz)
     bls_err, bls_times = bls_kernels_phase(n_sms, max_mhz)
     bls_phase()
-    bls_launches = block_phase()
+    flush_err, flush_times = flush_kernels_phase(n_sms, max_mhz)
+    g1_ladder_launches = flush_phase()
+    bls_launches, sig_launches = block_phase()
     t = times[MAIN_PATH_PAIRS]
+    csrc = "consensus_specs_tpu_torch/ops/csrc/"
     bls_rows = [dict(
-        name=name, route="cuda",
-        source=f"consensus_specs_tpu_torch/ops/csrc/{name}.cu",
-        replaces=replaces, launches=bls_launches[name],
-        max_abs_err=bls_err[name], ms=bls_times[name][0],
-        plain_ms=bls_times[name][1], bound_ms=bls_times[name][2],
-        bound_by=bls_times[name][3], library_ms=None)
-        for name, replaces in (
-            ("bls381_pairing", "consensus_specs_tpu/ops/pairing_jax.py:706"),
-            ("bls381_g2", "consensus_specs_tpu/ops/curve_jax.py:175"),
-            ("bls381_field", "consensus_specs_tpu/ops/fq.py:265"))]
+        name=name, route="cuda", source=csrc + source, replaces=replaces,
+        launches=count, max_abs_err=err[name], ms=tm[name][0],
+        plain_ms=tm[name][1], bound_ms=tm[name][2], bound_by=tm[name][3],
+        library_ms=None)
+        for name, source, replaces, count, err, tm in (
+            ("bls381_pairing", "bls381_pairing.cu",
+             "consensus_specs_tpu/ops/pairing_jax.py:706",
+             bls_launches["bls381_pairing"], bls_err, bls_times),
+            ("bls381_g2", "bls381_g2.cu",
+             "consensus_specs_tpu/ops/curve_jax.py:175",
+             bls_launches["bls381_g2"], bls_err, bls_times),
+            ("bls381_field", "bls381_field.cu",
+             "consensus_specs_tpu/ops/fq.py:265",
+             bls_launches["bls381_field"], bls_err, bls_times),
+            ("bls381_segment_sum", "bls381_msm.cu",
+             "consensus_specs_tpu/ops/g1_sweep.py:84",
+             sig_launches["bls381_segment_sum"], flush_err, flush_times),
+            ("bls381_g1_ladder", "bls381_msm.cu",
+             "consensus_specs_tpu/ops/msm.py:271", g1_ladder_launches,
+             flush_err, flush_times),
+            ("bls381_fold", "bls381_fold.cu",
+             "consensus_specs_tpu/ops/pairing_jax.py:568",
+             sig_launches["bls381_fold"], flush_err, flush_times))]
     print(json.dumps({"kernels": [{
         "name": "sha256_pairs", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_pairs.cu",

@@ -1,16 +1,21 @@
 """The CUDA BLS12-381 kernels: layouts, launch and count.
 
 Counterparts of the XLA device programs of consensus_specs_tpu/ops/fq.py,
-fq_tower.py, curve_jax.py and pairing_jax.py.  Three kernels, written for
-sm_90a on one set of device functions (csrc/bls381.cuh), built at first use
-with the port's other kernels (ops/cuda_build.py):
+fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Five
+kernels, written for sm_90a on one set of device functions
+(csrc/bls381.cuh), built at first use with the port's other kernels
+(ops/cuda_build.py):
 
 - csrc/bls381_pairing.cu, the pairing check in two launches: `miller`
   (launch 1, a Miller loop a pair) and `product_final` (launch 2, a job's
   product and final exponentiation);
 - csrc/bls381_g2.cu, the G2 ladder: `g2_ladder`;
 - csrc/bls381_field.cu, one elementwise kernel over the field, tower and
-  curve ops: `field_op`.
+  curve ops: `field_op`;
+- csrc/bls381_msm.cu, the segment sums of G1 or G2 points (`segment_sum`,
+  K1) and the G1 ladder (`g1_ladder`, K2);
+- csrc/bls381_fold.cu, the lanes and the last pair of a folded signature
+  flush (`fold_lanes`, K4, with a K1 launch between its two launches).
 
 Each wrapper takes and returns the plain version's limb layout (int64
 [..., 32] 12-bit limbs, ops/fq.py) and repacks to the kernels' 12 x 32-bit
@@ -155,6 +160,160 @@ g2_ladder.launches = 0
 g2_ladder.plain_calls = 0
 
 
+def g1_ladder(pt, bits):
+    """K2, the G1 ladder: msb-first double-and-add of each Jacobian point
+    (X, Y, Z), each [n, 32] int64 limbs, over its bit row of `bits`
+    [n, nbits] (0/1).  Returns (X, Y, Z) in the same layout.  The kernel on
+    CUDA tensors, the plain version (curve_torch.point_scalar_mul) on CPU
+    tensors."""
+    X, Y, Z = pt
+    for name, t in zip("XYZ", pt):
+        _check(f"g1_ladder {name}", t, (32,), torch.int64, X.device)
+        if t.shape != X.shape or t.dim() != 2:
+            raise ValueError(f"g1_ladder: expected [n, 32] coordinates, "
+                             f"got {tuple(t.shape)}")
+    n = X.shape[0]
+    if bits.dim() != 2 or bits.shape[0] != n or bits.device != X.device:
+        raise ValueError(f"g1_ladder: expected bits [{n}, nbits] on "
+                         f"{X.device}, got {tuple(bits.shape)} on "
+                         f"{bits.device}")
+    if X.device.type == "cpu":
+        g1_ladder.plain_calls += 1
+        return curve_torch.point_scalar_mul(F1, pt, bits)
+    kernels = cuda_build.build()
+    words = _words(torch.stack(pt, dim=1))            # [n, 3, 12]
+    bits8 = bits.to(torch.uint8).contiguous()
+    out = torch.empty_like(words)
+    if n:
+        kernels.g1_ladder(words, bits8, bits.shape[1], out, n)
+        g1_ladder.launches += 1
+    return tuple(fq.from_words(out).unbind(1))
+
+
+g1_ladder.launches = 0
+g1_ladder.plain_calls = 0
+
+
+def halving_sum(F, pt):
+    """Plain version of K1: (X, Y, Z) [s, L, ...] -> [s, ...], L a power of
+    two, by log2(L) halving rounds that add point i + h into point i (the
+    pair order of the reference's `_jax_sweep` and `_tree_sum_host`)."""
+    X, Y, Z = pt
+    while X.shape[1] > 1:
+        h = X.shape[1] // 2
+        X, Y, Z = curve_torch.point_add(F, (X[:, :h], Y[:, :h], Z[:, :h]),
+                                        (X[:, h:], Y[:, h:], Z[:, h:]))
+    return X[:, 0], Y[:, 0], Z[:, 0]
+
+
+def _segment_sum_words(g2, buf, length, out, segments):
+    """Launch K1 on word tensors: buf [segments, length, point] summed in
+    place, each segment's sum written to out [segments, point]."""
+    if segments:
+        cuda_build.build().segment_sum(g2, buf, length, out, segments)
+        segment_sum.launches += 1
+
+
+def segment_sum(pt):
+    """K1, the segment sums: (X, Y, Z), each [s, L, 32] (G1) or
+    [s, L, 2, 32] (G2) int64 limbs with L a power of two, -> the sum of
+    each segment, (X, Y, Z) [s, 32] or [s, 2, 32], Jacobian, equal to the
+    plain version's coordinates bit for bit (the same pair order).  The
+    kernel on CUDA tensors (one thread block a segment, halving in place in
+    a scratch copy), the plain version (`halving_sum`) on CPU tensors."""
+    X = pt[0]
+    g2 = X.dim() == 4
+    suffix = (2, 32) if g2 else (32,)
+    for name, t in zip("XYZ", pt):
+        _check(f"segment_sum {name}", t, suffix, torch.int64, X.device)
+        if t.shape != X.shape or t.dim() != 2 + len(suffix):
+            raise ValueError(f"segment_sum: expected [s, L, "
+                             f"{', '.join(map(str, suffix))}] coordinates, "
+                             f"got {tuple(t.shape)}")
+    s, length = X.shape[:2]
+    if length < 1 or length & (length - 1):
+        raise ValueError(f"segment_sum: segment length {length} is not a "
+                         f"power of two")
+    if X.device.type == "cpu":
+        segment_sum.plain_calls += 1
+        return halving_sum(F2 if g2 else F1, pt)
+    buf = _words(torch.stack(pt, dim=2))     # the scratch copy, summed in place
+    out = torch.empty((s,) + tuple(buf.shape[2:]), dtype=buf.dtype,
+                      device=buf.device)
+    _segment_sum_words(g2, buf, length, out, s)
+    return tuple(fq.from_words(out).unbind(1))
+
+
+segment_sum.launches = 0
+segment_sum.plain_calls = 0
+
+
+def fold_lanes(aggP, cbits, hP, sP, hbits, consts):
+    """K4: the Miller inputs of a folded flush's k + 1 pairs.  aggP (X, Y,
+    Z) [k, 32] G1 aggregates; cbits [k, nc] msb-first 0/1 coefficient
+    bits; hP and sP (X, Y, Z) [k, 2, 32], the pre-cofactor hash points and
+    the signatures; hbits [nh] the cofactor ladder's bits; consts the limbs
+    of (g1x, g1y, g2x, g2y, n1x, n1y) (pairing_torch._fold_consts); k a
+    power of two.  Returns (xp [k + 1, 32], yp, xq [k + 1, 2, 32], yq, skip
+    bool [k + 1]): pair i < k is (c_i agg_i, h_eff Q_i), the last
+    (-G1, sum_i c_i sig_i), affine, skipped where a side is infinity.
+
+    On CUDA tensors: launch 1 (a thread a lane: its three ladders and two
+    affine conversions), K1 over the lanes' c_i sig_i (counted in
+    `segment_sum.launches`), launch 3 (the last pair); two launches of
+    this wrapper's count a flush.  On CPU tensors the plain version
+    (pairing_torch._fold_lanes_plain)."""
+    X = aggP[0]
+    k = X.shape[0]
+    for name, t in zip("XYZ", aggP):
+        _check(f"fold_lanes agg {name}", t, (32,), torch.int64, X.device)
+        if t.shape != (k, 32):
+            raise ValueError(f"fold_lanes: expected agg [{k}, 32], got "
+                             f"{tuple(t.shape)}")
+    for label, p in (("h", hP), ("sig", sP)):
+        for name, t in zip("XYZ", p):
+            _check(f"fold_lanes {label} {name}", t, (2, 32), torch.int64,
+                   X.device)
+            if t.shape != (k, 2, 32):
+                raise ValueError(f"fold_lanes: expected {label} [{k}, 2, "
+                                 f"32], got {tuple(t.shape)}")
+    if cbits.dim() != 2 or cbits.shape[0] != k or hbits.dim() != 1 \
+            or cbits.device != X.device or hbits.device != X.device:
+        raise ValueError(f"fold_lanes: expected cbits [{k}, nc] and hbits "
+                         f"[nh] on {X.device}")
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"fold_lanes: {k} lanes is not a power of two")
+    if X.device.type == "cpu":
+        fold_lanes.plain_calls += 1
+        return pairing_torch._fold_lanes_plain(aggP, cbits, hP, sP, hbits,
+                                               consts)
+    kernels = cuda_build.build()
+    dev = X.device
+    agg = _words(torch.stack(aggP, dim=1))            # [k, 3, 12]
+    hq = _words(torch.stack(hP, dim=1))               # [k, 3, 2, 12]
+    sig = _words(torch.stack(sP, dim=1))
+    cb = cbits.to(torch.uint8).contiguous()
+    hb = hbits.to(torch.uint8).contiguous()
+    cw = torch.cat([fq.to_words(c).reshape(-1) for c in consts]).contiguous()
+    g1 = torch.empty((k + 1, 2, fq.WORDS), dtype=torch.int32, device=dev)
+    g2 = torch.empty((k + 1, 2, 2, fq.WORDS), dtype=torch.int32, device=dev)
+    skip = torch.empty(k + 1, dtype=torch.uint8, device=dev)
+    sw = torch.empty((1, k, 3, 2, fq.WORDS), dtype=torch.int32, device=dev)
+    S = torch.empty((1, 3, 2, fq.WORDS), dtype=torch.int32, device=dev)
+    kernels.fold_lanes(agg, cb, cb.shape[1], hq, sig, hb, hb.shape[0], cw,
+                       g1, g2, skip, sw, k)
+    fold_lanes.launches += 1
+    _segment_sum_words(True, sw, k, S, 1)
+    kernels.fold_tail(S, cw, g1, g2, skip, k)
+    fold_lanes.launches += 1
+    p, q = fq.from_words(g1), fq.from_words(g2)
+    return p[:, 0], p[:, 1], q[:, 0], q[:, 1], skip.to(torch.bool)
+
+
+fold_lanes.launches = 0
+fold_lanes.plain_calls = 0
+
+
 def miller(xp, yp, xq, yq, skip):
     """Launch 1 of the pairing check: the Miller loop of each pair, P =
     (xp, yp) [n, 32], Q = (xq, yq) [n, 2, 32] affine Montgomery limbs,
@@ -216,7 +375,9 @@ def product_final(f, final: bool = True):
 product_final.launches = 0
 product_final.plain_calls = 0
 
-# every wrapper of the three kernels, by kernel name (chip_smoke.py reads
-# and resets their counts)
+# every wrapper of the BLS kernels, by kernel name (chip_smoke.py reads
+# and resets their counts); K1 and K2 share csrc/bls381_msm.cu
 WRAPPERS = {"bls381_pairing": (miller, product_final),
-            "bls381_g2": (g2_ladder,), "bls381_field": (field_op,)}
+            "bls381_g2": (g2_ladder,), "bls381_field": (field_op,),
+            "bls381_segment_sum": (segment_sum,),
+            "bls381_g1_ladder": (g1_ladder,), "bls381_fold": (fold_lanes,)}

@@ -461,6 +461,8 @@ BLS_FN fp2 f_sqr(const fp2& a) { return fp2_sqr(a); }
 BLS_FN bool f_is_zero(const fp2& a) { return fp2_is_zero(a); }
 BLS_FN void f_set_one(fp2& a) { a = fp2_one(); }
 BLS_FN void f_set_zero(fp2& a) { a = fp2_zero(); }
+BLS_FN fp f_inv(const fp& a) { return fp_inv(a); }
+BLS_FN fp2 f_inv(const fp2& a) { return fp2_inv(a); }
 
 template <typename F>
 BLS_FN pt<F> pt_infinity() {
@@ -535,6 +537,22 @@ BLS_FN pt<F> pt_ladder(const pt<F>& p, const uint8_t* bits, int64_t nbits) {
     if (bits[i]) acc = pt_add(acc, p);
   }
   return acc;
+}
+
+// (x, y) = (X / Z^2, Y / Z^3), or (sx, sy) at infinity; returns whether p
+// is infinity.  Affine values are canonical: any formula gives these bits.
+template <typename F>
+BLS_FN bool pt_affine(const pt<F>& p, const F& sx, const F& sy, F& x, F& y) {
+  if (f_is_zero(p.z)) {
+    x = sx;
+    y = sy;
+    return true;
+  }
+  const F zi = f_inv(p.z);
+  const F zi2 = f_sqr(zi);
+  x = f_mul(p.x, zi2);
+  y = f_mul(p.y, f_mul(zi2, zi));
+  return false;
 }
 
 // ---------------------------------------------------------------------------
@@ -792,4 +810,69 @@ BLS_FN void final_elem(const uint32_t* f, int64_t k, int do_final,
     acc = fp12_mul(acc, bls_load<fp12>(f + i * 12 * BLS_NW));
   bls_store(prod, acc);
   if (do_final) *ok = fp12_is_one(final_exponentiation(acc)) ? 1 : 0;
+}
+
+// the ladder for one G1 point: p and out hold 36 words a point
+BLS_FN void g1_ladder_elem(const uint32_t* p, const uint8_t* bits,
+                           int64_t nbits, uint32_t* out) {
+  bls_store(out, pt_ladder(bls_load<pt<fp>>(p), bits, nbits));
+}
+
+// one step of a segment's halving sum: buf[i] <- buf[i] + buf[i + h], with
+// points of pt<F> (36 words for G1, 72 for G2).  Rounds h = L/2, ..., 1
+// leave the segment's sum in buf[0], adding in the plain version's pair
+// order (curve_torch.point_sum_tree, the reference's halving sweeps).
+template <typename F>
+BLS_FN void segment_step_elem(uint32_t* buf, int64_t i, int64_t h) {
+  const int64_t w = sizeof(pt<F>) / 4;
+  bls_store(buf + i * w, pt_add(bls_load<pt<F>>(buf + i * w),
+                                bls_load<pt<F>>(buf + (i + h) * w)));
+}
+
+// the fold's affine constants, in words: the G1 and G2 generators (the
+// substitutes at infinity) and -G1 (the base of the folded signature leg)
+enum FoldConst {
+  FC_G1X = 0, FC_G1Y = 12, FC_G2X = 24, FC_G2Y = 48, FC_N1X = 72,
+  FC_N1Y = 84, FC_WORDS = 96
+};
+
+// one lane of the folded flush (bls381_fold.cu launch 1): w = c agg (G1,
+// agg 36 words), H = h_eff Q (G2, hq 72 words, over the nh bits of hbits),
+// sw = c sig (G2, 72 words), c the lane's msb-first ncbits bits.  Writes
+// the lane's Miller inputs, g1 = affine w (24 words), g2 = affine H (48
+// words), skip = w or H at infinity (the generators stand in), and sw
+// (Jacobian) for the signature sum.
+BLS_FN void fold_lane_elem(const uint32_t* agg, const uint8_t* cbits,
+                           int64_t ncbits, const uint32_t* hq,
+                           const uint32_t* sig, const uint8_t* hbits,
+                           int64_t nh, const uint32_t* consts, uint32_t* g1,
+                           uint32_t* g2, uint8_t* skip, uint32_t* sw) {
+  const pt<fp> w = pt_ladder(bls_load<pt<fp>>(agg), cbits, ncbits);
+  const pt<fp2> H = pt_ladder(bls_load<pt<fp2>>(hq), hbits, nh);
+  bls_store(sw, pt_ladder(bls_load<pt<fp2>>(sig), cbits, ncbits));
+  fp xw, yw;
+  fp2 xh, yh;
+  const bool w_inf = pt_affine(w, bls_load<fp>(consts + FC_G1X),
+                               bls_load<fp>(consts + FC_G1Y), xw, yw);
+  const bool h_inf = pt_affine(H, bls_load<fp2>(consts + FC_G2X),
+                               bls_load<fp2>(consts + FC_G2Y), xh, yh);
+  bls_store(g1, xw);
+  bls_store(g1 + BLS_NW, yw);
+  bls_store(g2, xh);
+  bls_store(g2 + 2 * BLS_NW, yh);
+  *skip = (w_inf || h_inf) ? 1 : 0;
+}
+
+// the fold's last pair (launch 3): (-G1, affine S), S the signature sum
+// (72 words, Jacobian), skipped when S is infinity
+BLS_FN void fold_tail_elem(const uint32_t* S, const uint32_t* consts,
+                           uint32_t* g1, uint32_t* g2, uint8_t* skip) {
+  fp2 xs, ys;
+  const bool s_inf = pt_affine(bls_load<pt<fp2>>(S),
+                               bls_load<fp2>(consts + FC_G2X),
+                               bls_load<fp2>(consts + FC_G2Y), xs, ys);
+  for (int i = 0; i < 2 * BLS_NW; ++i) g1[i] = consts[FC_N1X + i];
+  bls_store(g2, xs);
+  bls_store(g2 + 2 * BLS_NW, ys);
+  *skip = s_inf ? 1 : 0;
 }

@@ -1,5 +1,6 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
-// epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu), for
+// epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu,
+// bls381_msm.cu, bls381_fold.cu), for
 // torch.utils.cpp_extension.load.  The one file of the port that includes
 // PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
 // ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
@@ -28,6 +29,21 @@ extern "C" int bls381_miller_launch(const void* g1, const void* g2,
 extern "C" int bls381_final_launch(const void* f, int64_t k, int do_final,
                                    void* prod, void* ok, int64_t b,
                                    void* stream);
+extern "C" int bls381_segment_sum_launch(int g2, void* buf, int64_t len,
+                                         void* out, int64_t segments,
+                                         void* stream);
+extern "C" int bls381_g1_ladder_launch(const void* pts, const void* bits,
+                                       int64_t nbits, void* out, int64_t n,
+                                       void* stream);
+extern "C" int bls381_fold_lanes_launch(const void* agg, const void* cbits,
+                                        int64_t ncbits, const void* hq,
+                                        const void* sig, const void* hbits,
+                                        int64_t nh, const void* consts,
+                                        void* g1, void* g2, void* skip,
+                                        void* sw, int64_t k, void* stream);
+extern "C" int bls381_fold_tail_launch(const void* S, const void* consts,
+                                       void* g1, void* g2, void* skip,
+                                       int64_t k, void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -104,6 +120,54 @@ void bls381_final(const torch::Tensor& f, int64_t k, bool do_final,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
+// K1: the sums of `segments` segments of `len` points, in place in buf
+// (bls381_msm.cu); g2 selects G2 points.
+void bls381_segment_sum(bool g2, torch::Tensor buf, int64_t len,
+                        torch::Tensor out, int64_t segments) {
+  const c10::cuda::CUDAGuard guard(buf.device());
+  const int rc = bls381_segment_sum_launch(
+      g2 ? 1 : 0, buf.data_ptr(), len, out.data_ptr(), segments,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// K2: the G1 ladder of n points over their bit rows (bls381_msm.cu).
+void bls381_g1_ladder(const torch::Tensor& pts, const torch::Tensor& bits,
+                      int64_t nbits, torch::Tensor out, int64_t n) {
+  const c10::cuda::CUDAGuard guard(pts.device());
+  const int rc = bls381_g1_ladder_launch(
+      pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// K4 launch 1: the fold's k lanes (bls381_fold.cu).
+void bls381_fold_lanes(const torch::Tensor& agg, const torch::Tensor& cbits,
+                       int64_t ncbits, const torch::Tensor& hq,
+                       const torch::Tensor& sig, const torch::Tensor& hbits,
+                       int64_t nh, const torch::Tensor& consts,
+                       torch::Tensor g1, torch::Tensor g2, torch::Tensor skip,
+                       torch::Tensor sw, int64_t k) {
+  const c10::cuda::CUDAGuard guard(agg.device());
+  const int rc = bls381_fold_lanes_launch(
+      agg.data_ptr(), cbits.data_ptr(), ncbits, hq.data_ptr(),
+      sig.data_ptr(), hbits.data_ptr(), nh, consts.data_ptr(), g1.data_ptr(),
+      g2.data_ptr(), skip.data_ptr(), sw.data_ptr(), k,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// K4 launch 3: the fold's last pair, at index k, from the sum S.
+void bls381_fold_tail(const torch::Tensor& S, const torch::Tensor& consts,
+                      torch::Tensor g1, torch::Tensor g2, torch::Tensor skip,
+                      int64_t k) {
+  const c10::cuda::CUDAGuard guard(S.device());
+  const int rc = bls381_fold_tail_launch(
+      S.data_ptr(), consts.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+      skip.data_ptr(), k, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_pairs", &sha256_pairs, "SHA-256 of each 64-byte chunk pair");
   m.def("sha256_gather", &sha256_gather,
@@ -116,4 +180,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bls381_miller", &bls381_miller, "Miller loops, one a pair");
   m.def("bls381_final", &bls381_final,
         "a job's Miller product and final exponentiation");
+  m.def("bls381_segment_sum", &bls381_segment_sum,
+        "halving sums of point segments, one block a segment");
+  m.def("bls381_g1_ladder", &bls381_g1_ladder, "the G1 double-and-add ladder");
+  m.def("bls381_fold_lanes", &bls381_fold_lanes,
+        "the folded flush's lanes: weighting, cofactor and signature ladders");
+  m.def("bls381_fold_tail", &bls381_fold_tail,
+        "the folded flush's last pair (-G1, S)");
 }

@@ -27,7 +27,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 KERNEL_SOURCES = tuple(os.path.join(CSRC, name) for name in (
     "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu",
-    "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu"))
+    "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu", "bls381_msm.cu",
+    "bls381_fold.cu"))
 BINDING_SOURCE = os.path.join(CSRC, "kernels_bind.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -72,7 +73,9 @@ def _build_cpp_extension():
     return SimpleNamespace(
         pairs=ext.sha256_pairs, gather=ext.sha256_gather, epoch=epoch,
         field=field, ladder=ext.bls381_ladder, miller=ext.bls381_miller,
-        final=ext.bls381_final)
+        final=ext.bls381_final, segment_sum=ext.bls381_segment_sum,
+        g1_ladder=ext.bls381_g1_ladder, fold_lanes=ext.bls381_fold_lanes,
+        fold_tail=ext.bls381_fold_tail)
 
 
 def _nvcc(nvcc, args):
@@ -120,7 +123,17 @@ def _build_ctypes():
     miller_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
     final_fn = lib.bls381_final_launch
     final_fn.argtypes = [ptr, i64, ctypes.c_int, ptr, ptr, i64, ptr]
-    for fn in (field_fn, ladder_fn, miller_fn, final_fn):
+    segment_fn = lib.bls381_segment_sum_launch
+    segment_fn.argtypes = [ctypes.c_int, ptr, i64, ptr, i64, ptr]
+    g1_ladder_fn = lib.bls381_g1_ladder_launch
+    g1_ladder_fn.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
+    lanes_fn = lib.bls381_fold_lanes_launch
+    lanes_fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i64, ptr, ptr, ptr,
+                         ptr, ptr, i64, ptr]
+    tail_fn = lib.bls381_fold_tail_launch
+    tail_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    for fn in (field_fn, ladder_fn, miller_fn, final_fn, segment_fn,
+               g1_ladder_fn, lanes_fn, tail_fn):
         fn.restype = ctypes.c_int
 
     def stream_of(t):
@@ -166,9 +179,37 @@ def _build_ctypes():
             _check("bls381_pairing (final exponentiation)", final_fn(
                 f.data_ptr(), k, int(do_final), prod.data_ptr(),
                 ok.data_ptr(), b, stream_of(f)))
+    def segment_sum(g2, buf, length, out, segments):
+        with torch.cuda.device(buf.device):
+            _check("bls381_msm (segment sum)", segment_fn(
+                int(g2), buf.data_ptr(), length, out.data_ptr(), segments,
+                stream_of(buf)))
+
+    def g1_ladder(pts, bits, nbits, out, n):
+        with torch.cuda.device(pts.device):
+            _check("bls381_msm (G1 ladder)", g1_ladder_fn(
+                pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
+                stream_of(pts)))
+
+    def fold_lanes(agg, cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2,
+                   skip, sw, k):
+        with torch.cuda.device(agg.device):
+            _check("bls381_fold (lanes)", lanes_fn(
+                agg.data_ptr(), cbits.data_ptr(), ncbits, hq.data_ptr(),
+                sig.data_ptr(), hbits.data_ptr(), nh, consts.data_ptr(),
+                g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), sw.data_ptr(),
+                k, stream_of(agg)))
+
+    def fold_tail(S, consts, g1, g2, skip, k):
+        with torch.cuda.device(S.device):
+            _check("bls381_fold (tail)", tail_fn(
+                S.data_ptr(), consts.data_ptr(), g1.data_ptr(),
+                g2.data_ptr(), skip.data_ptr(), k, stream_of(S)))
     return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch,
                            field=field, ladder=ladder, miller=miller,
-                           final=final)
+                           final=final, segment_sum=segment_sum,
+                           g1_ladder=g1_ladder, fold_lanes=fold_lanes,
+                           fold_tail=fold_tail)
 
 
 def build():
@@ -179,7 +220,11 @@ def build():
     returns the number of kernels it launched, and the BLS12-381 kernels'
     `.field(op, a, b, out, n)` (b None for a unary op), `.ladder(pts,
     bits, nbits, out, n)`, `.miller(g1, g2, skip, f, n)` and `.final(f, k,
-    do_final, prod, ok, b)` (bls381_cuda.py gives the layouts)."""
+    do_final, prod, ok, b)`, `.segment_sum(g2, buf, length, out,
+    segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, `.fold_lanes(agg,
+    cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2, skip, sw, k)` and
+    `.fold_tail(S, consts, g1, g2, skip, k)` (bls381_cuda.py gives the
+    layouts)."""
     global _kernels, build_route
     if _kernels is None:
         from torch.utils import cpp_extension

@@ -198,13 +198,13 @@ def g2_scalar_mul(p, bits):
 # ---------------------------------------------------------------------------
 
 def scalars_to_bits(scalars, n_bits: int = 256, device="cpu") -> torch.Tensor:
-    """msb-first bits [n, n_bits] (uint8) of each scalar."""
-    out = np.zeros((len(scalars), n_bits), dtype=np.uint8)
-    for i, s in enumerate(scalars):
-        s = int(s)
-        for j in range(n_bits):
-            out[i, j] = (s >> (n_bits - 1 - j)) & 1
-    return torch.from_numpy(out).to(device)
+    """msb-first bits [n, n_bits] (uint8) of each scalar mod 2^n_bits."""
+    n_bytes = (n_bits + 7) // 8
+    mask = (1 << n_bits) - 1
+    raw = b"".join((int(s) & mask).to_bytes(n_bytes, "big") for s in scalars)
+    bits = np.unpackbits(np.frombuffer(raw, dtype=np.uint8))
+    bits = bits.reshape(len(scalars), 8 * n_bytes)[:, 8 * n_bytes - n_bits:]
+    return torch.from_numpy(np.ascontiguousarray(bits)).to(device)
 
 
 def g1_pack(points, device="cpu") -> tuple:

@@ -14,13 +14,17 @@ reference's).  The zero bits of |x| skip the add step with a branch (the
 reference's scan computes it and discards it under a select: the same
 result).
 
-`pairing_check`, `miller_partial_products` and `fq12_product_is_one` are the
-entry points.  They go through ops/bls381_cuda.py, which launches
-ops/csrc/bls381_pairing.cu on CUDA tensors (launch 1: a Miller loop a pair;
-launch 2: a job's product and final exponentiation) and runs the plain
-functions here on CPU tensors.  The reference's staged and chunked modes,
-row buckets and `warmup` are XLA compile and dispatch concerns with no
-counterpart; the fold surface comes with the signature pipeline.
+`pairing_check`, `miller_partial_products`, `fq12_product_is_one` and
+`fold_partial_products` are the entry points.  They go through
+ops/bls381_cuda.py, which launches ops/csrc/bls381_pairing.cu on CUDA
+tensors (launch 1: a Miller loop a pair; launch 2: a job's product and final
+exponentiation), and for the fold first ops/csrc/bls381_fold.cu with a
+segment sum of ops/csrc/bls381_msm.cu, and runs the plain functions here on
+CPU tensors.  The reference's chunked mode, row buckets and `warmup` are XLA
+compile and dispatch concerns with no counterpart.  Its `PAIRING_MODE` stays
+as the switch the signature pipeline reads (sigpipe/fold.py
+`one_launch_live`): "fused", the default, takes the one-launch fold,
+"staged" the staged fold chain.
 
 Oracle: crypto/pairing.py (affine untwist into Fq12; its Miller values
 differ from these by factors the final exponentiation kills, so verdicts
@@ -28,10 +32,31 @@ and final values agree, Miller products do not).
 """
 from __future__ import annotations
 
+import os as _os
+
 import torch
 
 from . import fq
 from . import fq_tower as ft
+
+# the reference's pairing mode switch: "fused" (the default) or "staged".
+# Read by sigpipe/fold.py `one_launch_live` only; the env var is read at
+# resolve time, direct assignment wins, reset_mode() forgets a cached
+# choice.
+PAIRING_MODE = None
+
+
+def reset_mode() -> None:
+    """Forget the cached mode: the next resolve re-reads PAIRING_MODE."""
+    global PAIRING_MODE
+    PAIRING_MODE = None
+
+
+def _resolve_mode() -> str:
+    global PAIRING_MODE
+    if PAIRING_MODE is None:
+        PAIRING_MODE = _os.environ.get("PAIRING_MODE") or "fused"
+    return PAIRING_MODE
 
 BLS_X_ABS = 0xD201000000010000          # |x|, x negative for BLS12-381
 
@@ -262,3 +287,122 @@ def pairing_check(xps, yps, xqs, yqs, skip=None):
     f = _miller_values(xps, yps, xqs, yqs, skip)
     _, ok = bls381_cuda.product_final(f, final=True)
     return ok.reshape(xps.shape[:-2])
+
+
+# ---------------------------------------------------------------------------
+# the folded flush (sigpipe/fold.py, parallel/shard_verify.pairing_fold)
+# ---------------------------------------------------------------------------
+# One flush of N signature sets folds its N signature legs e(-c_i g1, sig_i)
+# into one pair e(-g1, S), S = sum_i c_i sig_i, and decides the flush with
+# the product of N + 1 Miller loops.  The reference fuses the cofactor
+# ladder, the weighting, the G2 sum, the affine conversion and the partial
+# Miller product into one XLA program; here the pairs come from
+# bls381_cuda.fold_lanes (csrc/bls381_fold.cu with a segment sum between
+# its launches) and go through the pairing kernel's two launches.
+
+_FOLD_CONSTS: dict = {}     # device -> the packed constants, once a device
+
+
+def _fold_consts(device="cpu"):
+    """The affine constants the fold substitutes and appends, as limbs on
+    `device`: (g1 gen x, y [32], g2 gen x, y [2, 32], -g1 x, y [32])."""
+    key = str(torch.device(device))
+    if key not in _FOLD_CONSTS:
+        from ..crypto import curve as cv
+        g1x, g1y = cv.g1_generator().affine()
+        g2x, g2y = cv.g2_generator().affine()
+        n1x, n1y = (-cv.g1_generator()).affine()
+        _FOLD_CONSTS[key] = (
+            fq.pack_mont([g1x.v], device)[0], fq.pack_mont([g1y.v], device)[0],
+            ft.fq2_pack_mont([g2x], device)[0],
+            ft.fq2_pack_mont([g2y], device)[0],
+            fq.pack_mont([n1x.v], device)[0], fq.pack_mont([n1y.v], device)[0])
+    return _FOLD_CONSTS[key]
+
+
+_H_EFF: dict = {}           # device -> the cofactor ladder's bits
+
+
+def _h_eff_bits(device="cpu"):
+    """The bits of h_eff on `device`, once a device: exactly the bits
+    ops/bls_cuda.py `hash_to_g2_batch` walks."""
+    key = str(torch.device(device))
+    if key not in _H_EFF:
+        from .bls_cuda import _H_EFF_BITS
+        _H_EFF[key] = torch.from_numpy(_H_EFF_BITS).to(device)
+    return _H_EFF[key]
+
+
+def _g1_jacobian_to_affine(P, sub_x, sub_y):
+    """Batched Jacobian -> affine over G1 limbs: (x, y, inf).  Infinity rows
+    (Z == 0) read the substitute coordinates and set the mask."""
+    X, Y, Z = P
+    inf = fq.is_zero(Z)
+    zi = ft.fq_inv(fq.select(inf, fq.one_mont(Z), Z))
+    zi2 = fq.square(zi)
+    x = fq.mul(X, zi2)
+    y = fq.mul(Y, fq.mul(zi2, zi))
+    return (fq.select(inf, sub_x.expand_as(x), x),
+            fq.select(inf, sub_y.expand_as(y), y), inf)
+
+
+def _g2_jacobian_to_affine(P, sub_x, sub_y):
+    """Batched Jacobian -> affine over G2 (Fq2) limbs: (x, y, inf)."""
+    X, Y, Z = P
+    inf = ft.fq2_is_zero(Z)
+    pick = inf[..., None, None]
+    zi = ft.fq2_inv(torch.where(pick, ft.fq2_one(Z), Z))
+    zi2 = ft.fq2_square(zi)
+    x = ft.fq2_mul(X, zi2)
+    y = ft.fq2_mul(Y, ft.fq2_mul(zi2, zi))
+    return (torch.where(pick, sub_x.expand_as(x), x),
+            torch.where(pick, sub_y.expand_as(y), y), inf)
+
+
+def _fold_assemble(w, H, S, consts):
+    """The flush's k + 1 Miller pairs from the weighted aggregates w and
+    hashes H (Jacobian, [k, ...]) and the signature sum S (Jacobian): k
+    legs (w_i, H_i) and the last (-g1, S), affine, with the skip mask
+    (w_i or H_i at infinity; S at infinity)."""
+    g1x, g1y, g2x, g2y, n1x, n1y = consts
+    xw, yw, w_inf = _g1_jacobian_to_affine(w, g1x, g1y)
+    xh, yh, h_inf = _g2_jacobian_to_affine(H, g2x, g2y)
+    xs, ys, s_inf = _g2_jacobian_to_affine(
+        tuple(c[None] for c in S), g2x, g2y)
+    return (torch.cat([xw, n1x[None]]), torch.cat([yw, n1y[None]]),
+            torch.cat([xh, xs]), torch.cat([yh, ys]),
+            torch.cat([w_inf | h_inf, s_inf]))
+
+
+def _fold_lanes_plain(aggP, cbits, hP, sP, hbits, consts):
+    """Plain version of bls381_cuda.fold_lanes (the reference's
+    `_fold_partial_core` up to its Miller loops): the weighting ladder
+    w_i = c_i agg_i, the cofactor ladder H_i = h_eff Q_i, the signature sum
+    S = sum_i c_i sig_i by halving, and the assembled pairs."""
+    from . import bls381_cuda, curve_torch
+    F1, F2 = curve_torch.F1, curve_torch.F2
+    k = aggP[0].shape[0]
+    w = curve_torch.point_scalar_mul(F1, aggP, cbits)
+    H = curve_torch.point_scalar_mul(F2, hP, hbits.expand(k, -1))
+    sw = curve_torch.point_scalar_mul(F2, sP, cbits)
+    S = tuple(c[0] for c in bls381_cuda.halving_sum(
+        F2, tuple(c[None] for c in sw)))
+    return _fold_assemble(w, H, S, consts)
+
+
+def fold_partial_products(aggP, cbits, hP, sP):
+    """The partial Fq12 product of one folded flush, width 1: its k
+    weighted-aggregate Miller legs times its e(-g1, S) leg, [12, 32], no
+    final exponentiation.  aggP (X, Y, Z) [k, 32] Jacobian aggregates;
+    cbits [k, 64] msb-first coefficient bits; hP, sP (X, Y, Z) [k, 2, 32]
+    Jacobian pre-cofactor hash points and signatures; k a power of two.
+    Four launches on the card (the fold's two, a segment sum between them,
+    the Miller loops) and the product launch without the final
+    exponentiation; the plain versions on CPU tensors."""
+    from . import bls381_cuda
+    device = aggP[0].device
+    xp, yp, xq, yq, skip = bls381_cuda.fold_lanes(
+        aggP, cbits, hP, sP, _h_eff_bits(device), _fold_consts(device))
+    f = bls381_cuda.miller(xp, yp, xq, yq, skip)
+    prod, _ = bls381_cuda.product_final(f[None], final=False)
+    return prod[0]

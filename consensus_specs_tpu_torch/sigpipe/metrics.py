@@ -1,4 +1,5 @@
-"""Pipeline metrics: counters, observations and power-of-two histograms.
+"""Pipeline metrics: counters, labeled counters, observations, power-of-two
+histograms and wall-clock timers.
 
 A slim copy of consensus_specs_tpu/sigpipe/metrics.py: one module-global
 `METRICS` registry with the calls incremental merkleization
@@ -35,7 +36,28 @@ and the observation of the BLS path (ops/bls_cuda.py):
 
 - `miller_loops_per_batch`: the pairs of each batched pairing check that
   a FastAggregateVerify or AggregateVerify batch dispatched (count,
-  total, min, max and mean), one observation a batch.
+  total, min, max and mean), one observation a batch;
+
+and the calls of the signature pipeline (sigpipe/), under the reference's
+names:
+
+- `signatures_scheduled`, the observation `batch_size` and the histogram
+  `batch_occupancy`: the sets each `verify_sets` call took;
+- `dispatches`: verification dispatches (a flush's product, a bisection
+  probe, a per-set batch); `fold_dispatches`: folded flushes and staged
+  G2 folds; `msm_dispatches`: Fiat-Shamir weighting sweeps;
+- `miller_loops_per_flush`: the pairing legs of each fused flush, N + 1
+  folded against 2N unfolded; the labeled `fold_enabled` (`on`, `off`);
+- `fused_batch_failures`, `bisect_dispatches` and the observation
+  `bisect_depth`: failed products and their isolation;
+- `host_point_adds`: point operations of the host ladder that bisection
+  probes re-derive their weighted pairs with;
+- `seam_hits`, `seam_misses` (with the labeled `scalar_fallbacks`,
+  `collector_miss`) and `dedup_saved`: how the block's checks met the
+  verdict map;
+- `pubkey_cache_*`, `aggregate_cache_*` and `g1_aggregate_dispatches`:
+  the pubkey caches and their batched committee sums;
+- the timer `verify_sets` (the snapshot's `verify_sets_sec`).
 
 The kernels' own counts are the wrappers' `.launches` and `.plain_calls`
 (ops/sha256_cuda.py, ops/epoch_sweep_cuda.py, ops/bls381_cuda.py), not
@@ -47,6 +69,8 @@ lock registry; the port keeps one registry behind one plain lock.
 from __future__ import annotations
 
 import threading
+import time
+from contextlib import contextmanager
 
 
 class Metrics:
@@ -57,8 +81,10 @@ class Metrics:
     def reset(self) -> None:
         with self._lock:
             self.counters: dict = {}
+            self.labeled: dict = {}
             self.observations: dict = {}
             self.histograms: dict = {}
+            self.timers: dict = {}
 
     def inc(self, name: str, by: int = 1) -> None:
         with self._lock:
@@ -67,6 +93,12 @@ class Metrics:
     def count(self, name: str) -> int:
         with self._lock:
             return self.counters.get(name, 0)
+
+    def inc_labeled(self, name: str, label: str, by: int = 1) -> None:
+        """One counter per (name, label) pair."""
+        with self._lock:
+            series = self.labeled.setdefault(name, {})
+            series[label] = series.get(label, 0) + by
 
     def observe(self, name: str, value) -> None:
         """Fold one observation into `name`'s count, total, min and max
@@ -100,14 +132,29 @@ class Metrics:
         with self._lock:
             return dict(self.histograms.get(name, {}))
 
+    @contextmanager
+    def timer(self, name: str):
+        """Add the wall seconds of the block to the timer `name`."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            elapsed = time.perf_counter() - t0
+            with self._lock:
+                self.timers[name] = self.timers.get(name, 0.0) + elapsed
+
     def snapshot(self) -> dict:
         with self._lock:
             out = dict(self.counters)
+            for name, series in self.labeled.items():
+                out[name] = dict(series)
             for name, o in self.observations.items():
                 out[name] = dict(o, mean=o["total"] / o["count"])
             for name, series in self.histograms.items():
                 out[f"{name}_hist"] = {
                     b: series[b] for b in sorted(series, key=int)}
+            for name, secs in self.timers.items():
+                out[f"{name}_sec"] = round(secs, 6)
             return out
 
 

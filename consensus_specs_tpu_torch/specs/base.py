@@ -2,9 +2,9 @@
 
 Counterpart of consensus_specs_tpu/specs/base.py, with its signature
 verification seams (`bls_verify`, `bls_fast_aggregate_verify`), through
-which every signature check of the spec reaches utils/bls.py.  The sigpipe
-that would install a precomputed verdict map is not ported yet, so the map
-stays None and every seam call is a scalar verify.  Each fork is a class; a
+which every signature check of the spec reaches utils/bls.py, or the
+verdict map the signature pipeline installs (sigpipe/verify.py
+`block_scope`).  Each fork is a class; a
 *spec instance* is (fork class × preset × config), carrying its own SSZ
 container classes (preset values define vector/list shapes) and all spec
 functions as methods.  Class inheritance gives the consensus-specs fork-overlay

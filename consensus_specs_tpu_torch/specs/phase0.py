@@ -13,8 +13,10 @@ state for incremental merkleization as the reference does
 the card) and then the cheap tail resets; inside `epoch_fast.scalar_epoch()`
 it runs the reference-shaped scalar pass list instead.  Every signature
 check goes through the seams of specs/base.py to utils/bls.py, whose
-default backend runs the ladder and pairing kernels; there is no deferred
-signature pipeline yet (`state_transition` has no `block_scope`).  The
+default backend runs the ladder and pairing kernels; with the opt-in
+deferred signature pipeline (`sigpipe.enable()`) `state_transition`
+verifies the block's checks first as one batch (`sigpipe.verify.
+block_scope`) and the seams read its verdicts.  The
 fork-choice and validator-duty mixins come with later slices of the port
 (ROADMAP.md).
 
@@ -652,18 +654,23 @@ class Phase0Spec(BaseSpec):
                          validate_result: bool = True) -> None:
         """Apply a signed block: process_slots to its slot, its proposer
         signature, process_block, and the post-state root check.  Every
-        signature check goes through the seams (specs/base.py) to the BLS
-        shim, one scalar verify each: the reference's deferred signature
-        pipeline (`sigpipe.verify.block_scope`) is not ported yet."""
+        signature check goes through the seams (specs/base.py): one scalar
+        verify each, or with `sigpipe.enable()` the verdicts of one batch
+        of the block's checks (`sigpipe.verify.block_scope`)."""
         # opt-in incremental merkleization (ssz/incremental.py): track the
         # hot state so every hash_tree_root below re-hashes only the
         # block's dirty cone (no-op while the mode is disabled)
         ssz_incremental.track(state)
         block = signed_block.message
         self.process_slots(state, block.slot)
-        if validate_result:
-            assert self.verify_block_signature(state, signed_block)
-        self.process_block(state, block)
+        # opt-in deferred signature pipeline: precompute one batch verdict
+        # per signature check; the per-operation seams consume them at the
+        # inline call sites (scalar path when disabled)
+        from ..sigpipe import verify as sigpipe_verify
+        with sigpipe_verify.block_scope(self, state, signed_block):
+            if validate_result:
+                assert self.verify_block_signature(state, signed_block)
+            self.process_block(state, block)
         if validate_result:
             assert block.state_root == hash_tree_root(state)
 

@@ -38,6 +38,15 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import consensus_specs_tpu_torch.ops.bls_cuda\n"
         "import consensus_specs_tpu_torch.utils.bls\n"
         "import consensus_specs_tpu_torch.crypto.bls12_381\n"
+        "import consensus_specs_tpu_torch.ops.g1_sweep\n"
+        "import consensus_specs_tpu_torch.ops.msm\n"
+        "import consensus_specs_tpu_torch.parallel.shard_verify\n"
+        "import consensus_specs_tpu_torch.sigpipe.bisect\n"
+        "import consensus_specs_tpu_torch.sigpipe.cache\n"
+        "import consensus_specs_tpu_torch.sigpipe.fold\n"
+        "import consensus_specs_tpu_torch.sigpipe.scheduler\n"
+        "import consensus_specs_tpu_torch.sigpipe.sets\n"
+        "import consensus_specs_tpu_torch.sigpipe.verify\n"
         "from consensus_specs_tpu_torch.ops import cuda_build\n"
         "from consensus_specs_tpu_torch.specs import get_spec\n"
         "get_spec('phase0', 'minimal')\n"
