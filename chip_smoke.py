@@ -50,9 +50,17 @@ paths against its plain PyTorch version:
    h_eff ladder on 1, 64 and 1,024 points, and the Miller values, products
    and verdicts of a valid and an invalid check at k = 2, 129 and 1,024
    pairs, each equal to the plain torch version on the card bit for bit;
-   the times of the main path's shapes (one check of two pairs, one
-   ladder, one affine normalization) from a CUDA graph, with the plain
-   version's times and the operation bounds;
+   the cofactor kernel's affine words at 1, 64 and 1,024 points (a row
+   of order 169 and an infinity row from 64) equal to its plain psi
+   version and to the ladder followed by the normalization, and the
+   four-warp check's product before the final exponentiation and verdicts
+   at k = 2, 129 and 1,024 and at 14 jobs of k = 2 equal to miller +
+   product_final and to its plain version, bit for bit; the times of the
+   main path's shapes (one check of two pairs, one cofactor clearing, and
+   what they replace: the two pairing launches, one ladder, one affine
+   normalization) from a CUDA graph side by side, with the plain
+   version's times and the operation bounds (the new kernels' from their
+   plain versions' product counters);
 10. bls: seeded Verify (valid, tampered, wrong key, infinity),
    FastAggregateVerify over a 128-key committee (valid, invalid) and
    AggregateVerify over 8 messages on the shim's device backend, each
@@ -73,8 +81,9 @@ paths against its plain PyTorch version:
    attestations, a proposer and an attester slashing: 14 signature
    checks), through `state_transition` with BLS on: the root must equal
    the host oracle and the JAX package's (POST_BLOCK_ROOT_98), every check
-   must launch the ladder once and the pairing kernel's two launches once,
-   and a copy with a tampered first attestation must be rejected there;
+   must launch the cofactor kernel once and the four-warp pairing check
+   once (and the ladder, field and two-launch pairing kernels never), and
+   a copy with a tampered first attestation must be rejected there;
    then the same with `sigpipe.enable()`: the same root, 14 seam hits, one
    flush as one fold chain with no scalar ladder, and the tampered copy
    rejected at its attestation after bisection; prints each part's
@@ -273,10 +282,16 @@ def device_phase():
 @phase("build")
 def build_phase():
     cuda_build.build()
+    from torch.utils import cpp_extension
+    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
+                        "nvcc")
+    release = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
     print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_pairing, "
-          f"bls381_g2, bls381_field, bls381_msm (segment sums, G1 ladder) "
-          f"and bls381_fold built by {cuda_build.build_route} into "
-          f"{cuda_build.BUILD_DIR}")
+          f"bls381_g2, bls381_field, bls381_msm (segment sums, G1 ladder), "
+          f"bls381_fold, bls381_cofactor and bls381_check built by "
+          f"{cuda_build.build_route} into {cuda_build.BUILD_DIR} with nvcc "
+          f"{release[-1] if release else 'of unknown version'}")
     print_resource_usage()
 
 
@@ -288,7 +303,7 @@ def print_resource_usage():
     tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
                         "cuobjdump")
     for name in ("bls381_pairing", "bls381_g2", "bls381_field", "bls381_msm",
-                 "bls381_fold"):
+                 "bls381_fold", "bls381_cofactor", "bls381_check"):
         objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
                 if f.startswith(name) and f.endswith(".o")]
         if not objs or not os.path.exists(tool):
@@ -313,6 +328,40 @@ def print_resource_usage():
             threads = 65536 // max(regs, 1) // 32 * 32
             print(f"{name} {kernel}: {line.strip()} -> at most "
                   f"{min(threads, 2048)} resident threads an SM by registers")
+    print_spills(("bls381_cofactor.cu", "bls381_check.cu"))
+
+
+def print_spills(sources):
+    """ptxas -v of the redesigned kernels' sources, read from the build's
+    log (cuda_build.BUILD_LOG): each one's entry (registers, stack, shared
+    memory) and its spill stores and loads summed over every function (the
+    kernel and its out-of-line device functions)."""
+    if not os.path.exists(cuda_build.BUILD_LOG):
+        print("no build log to read ptxas's report from")
+        return
+    with open(cuda_build.BUILD_LOG) as log:
+        # a compile's command line (ninja's "[i/n] ..." or "[nvcc] -c ..."),
+        # then its output
+        parts = re.split(r"\n(?=\[)", "\n" + log.read())
+    for src in sources:
+        path = os.path.join(cuda_build.CSRC, src) + " "
+        report = "".join(p for p in parts if path in p.split("\n", 1)[0])
+        stores = loads = 0
+        spilling = []
+        for fn, props in re.findall(
+                r"Function properties for (\S+)\n\s*(?:ptxas info\s*:\s*)?"
+                r"(.*)", report):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", props)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                stores += int(m.group(1))
+                loads += int(m.group(2))
+                spilling.append(fn)
+        entries = re.findall(r"Used \d+ registers.*", report)
+        print(f"ptxas -v {src}: entry {'; '.join(entries) or 'not in the log'}"
+              f"; spill stores {stores} bytes, spill loads {loads} bytes over"
+              f" its functions"
+              f"{' (' + ', '.join(spilling) + ')' if spilling else ''}")
 
 
 def bound(n_pairs, bytes_per_pair, n_sms, max_mhz):
@@ -1254,6 +1303,10 @@ MULS_PER_FQ_PRODUCT = 2 * 2 * 12 * 12 + 12
 INT_MULS_PER_SM_PER_CLOCK = 64
 _X_ONES = bin(pairing_torch.BLS_X_ABS)[3:].count("1")
 FQ_INV = 380 + bin(Q - 2)[3:].count("1")
+# the redesigned kernels' Fq inverse (csrc/bls381_reg.cuh rq_inv): a binary
+# GCD on the ALU pipe, whose shift and subtract steps are not counted, then
+# one product by R^3
+GCD_FQ_INV = 1
 FQ2_INV = 4 + FQ_INV
 FQ6_INV = 33 + FQ2_INV
 FQ12_INV = 72 + FQ6_INV
@@ -1277,9 +1330,40 @@ FIELD_CHUNK = {12: 1 << 16, 24: 1 << 16, 36: 1 << 15, 72: 1 << 13,
                144: 1 << 13}
 LADDER_SIZES = (1, 64, 1024)
 MILLER_SIZES = (2, 129, 1024)
+COFACTOR_SIZES = (1, 64, 1024)  # Kernel A's holds (an infinity row from 64)
+CHECK_JOBS = 14                 # Kernel B at a block's 14 checks of k = 2
+# Kernel A's Fq products a point (csrc/bls381_reg.cuh cofactor_elem),
+# counted from the method, which gives its bound: two multiplications by x
+# (63 doublings, 5 adds each), three psi (2 Fq2 products each), a doubling,
+# five adds, the Fq2 inverse (4 products and the binary GCD's) and the 11
+# affine products.  The kernel also computes, in each of its 15 adds, the
+# doubling its select may discard.
+COFACTOR_METHOD_PRODUCTS = \
+    2 * (63 * G2_DOUBLE_PRODUCTS + 5 * G2_ADD_PRODUCTS) + 3 * 6 \
+    + G2_DOUBLE_PRODUCTS + 5 * G2_ADD_PRODUCTS + 4 + GCD_FQ_INV + 11
+COFACTOR_PRODUCTS = COFACTOR_METHOD_PRODUCTS + 15 * G2_DOUBLE_PRODUCTS
 FAV_COMMITTEE = 128
 CARD = "cuda"                   # where the BLS phases put their tensors
 AV_MESSAGES = 8
+
+
+def plain_products(fn):
+    """(ms, products) of one plain torch run of fn on the card (no
+    warm-up): its Fq products by `fq.mul.count`, each Fq inverse counted
+    as the redesigned kernels' GCD_FQ_INV where the plain version takes
+    FQ_INV."""
+    fermat, inverses = ft.fq_inv, []
+
+    def counted_inv(a):
+        inverses.append(a.numel() // fq.LIMBS)
+        return fermat(a)
+    ft.fq_inv = counted_inv
+    fq.mul.count = 0
+    try:
+        ms = cuda_ms(fn, 1, warmup=0)
+    finally:
+        ft.fq_inv = fermat
+    return ms, fq.mul.count - sum(inverses) * (FQ_INV - GCD_FQ_INV)
 
 
 def op_bound(products, n_bytes, n_sms, max_mhz):
@@ -1372,6 +1456,45 @@ def _ladder_points(n):
     return curve_torch.g2_pack(pts, CARD)
 
 
+def _old_affine_g2(pt):
+    """The check-by-check path's affine normalization before Kernel A: four
+    field-kernel launches, x = X / Z^2, y = Y / Z^3 (zeros where Z = 0)."""
+    X, Y, Z = pt
+    zinv = bls381_cuda.field_op("fq2_inv", Z)
+    zinv2 = bls381_cuda.field_op("fq2_square", zinv)
+    zinv3 = bls381_cuda.field_op("fq2_mul", zinv2, zinv)
+    xy = bls381_cuda.field_op("fq2_mul", torch.stack([X, Y]),
+                              torch.stack([zinv2, zinv3]))
+    return xy[0], xy[1]
+
+
+# the cofactor of G2 in E'(Fq2): 13^2 23^2 2713 11953 262069 times a large
+# prime
+G2_COFACTOR = int(
+    "5d543a95414e7f1091d50792876a202cd91de4547085abaa68a205b2e5a7ddfa628f1c"
+    "b4d9e82ef21537e293a6691ae1616ec6e786f0c70cf1c38e31c7238e5", 16)
+
+
+def _torsion_point():
+    """A point of order 169 on E'(Fq2): the ladders of the psi method meet
+    opposite and infinite inputs in their adds, and h_eff P is infinity."""
+    u0, u1 = h2c.hash_to_field_fq2(b"\x02" * 3, 2, h2c.DST_G2)
+    p = h2c.iso_map(*h2c.sswu_map(u0)) + h2c.iso_map(*h2c.sswu_map(u1))
+    return p * (G2_COFACTOR * R // 169)
+
+
+def _cofactor_points(n):
+    """Kernel A's inputs: `_ladder_points(n)`, from 64 rows on with a point
+    of order 169 and the point at infinity as the last two."""
+    pt = _ladder_points(n)
+    if n >= 64:
+        edge = curve_torch.g2_pack([_torsion_point(), cv.g2_infinity()],
+                                   CARD)
+        for c, e in zip(pt, edge):
+            c[-2:] = e
+    return pt
+
+
 def _max_err(got, want):
     if isinstance(got, (tuple, list)):
         return max(_max_err(g, w) for g, w in zip(got, want))
@@ -1380,14 +1503,19 @@ def _max_err(got, want):
 
 @phase("bls kernels")
 def bls_kernels_phase(n_sms, max_mhz):
-    """The three BLS kernels against their plain torch versions on the
-    card, bit for bit: every field op on 2^16 seeded elements, the h_eff
-    ladder on 1, 64 and 1,024 points, and Miller products and verdicts of
-    a valid and an invalid check at k = 2, 129 and 1,024 pairs; then the
-    times of the main path's shapes from a CUDA graph, with the plain
-    version's times and the operation bounds."""
+    """The five scalar BLS kernels against their plain torch versions on
+    the card, bit for bit: every field op on 2^16 seeded elements, the
+    h_eff ladder on 1, 64 and 1,024 points, Miller products and verdicts
+    of a valid and an invalid check at k = 2, 129 and 1,024 pairs; the
+    cofactor kernel (psi) on 1, 64 and 1,024 points against its plain
+    version and the ladder plus normalization; the four-warp check at the
+    same k and at 14 jobs of k = 2 against miller + product_final and its
+    plain version; then the times of the main path's shapes from a CUDA
+    graph, old and new side by side, with the plain version's times and
+    the operation bounds."""
     gen = torch.Generator().manual_seed(SEED + 6)
-    max_err = {"bls381_field": 0, "bls381_g2": 0, "bls381_pairing": 0}
+    max_err = {"bls381_field": 0, "bls381_g2": 0, "bls381_pairing": 0,
+               "bls381_cofactor": 0, "bls381_check": 0}
     for op, (suffix, arity, plain) in bls381_cuda.FIELD_OPS.items():
         a, b = _field_inputs(op, gen, FIELD_ELEMENTS)
         got = bls381_cuda.field_op(op, a, b)
@@ -1428,6 +1556,26 @@ def bls_kernels_phase(n_sms, max_mhz):
         print(f"bls381_g2: h_eff ladder == plain bit for bit at {n} points",
               flush=True)
 
+    for n in COFACTOR_SIZES:
+        pt = _cofactor_points(n)
+        got = bls381_cuda.clear_cofactor_g2(pt)
+        plain = curve_torch.clear_cofactor_g2_plain(pt)
+        old = bls381_cuda.g2_ladder(pt, h_bits.expand(n, -1))
+        old_xy = _old_affine_g2(old)
+        torch.cuda.synchronize()
+        err = max(_max_err(got[:2], plain[:2]), _max_err(got[:2], old_xy))
+        max_err["bls381_cofactor"] = max(max_err["bls381_cofactor"], err)
+        check(err == 0 and torch.equal(got[2], plain[2])
+              and torch.equal(got[2], ft.fq2_is_zero(old[2])),
+              f"bls381_cofactor != plain or ladder + normalization at {n} "
+              f"points ({err})")
+        check(n < 64 or got[2][-2:].tolist() == [True, True],
+              "bls381_cofactor: the order-169 and infinity rows did not "
+              "come out as infinity")
+        print(f"bls381_cofactor: affine h_eff P == plain psi version == "
+              f"ladder + normalization bit for bit at {n} points "
+              f"({int(got[2].sum())} at infinity)", flush=True)
+
     for k in MILLER_SIZES:
         jobs = [_pairing_jobs(k, True), _pairing_jobs(k, False)]
         xp, yp, xq, yq = (torch.cat([j[c] for j in jobs]) for c in range(4))
@@ -1437,22 +1585,56 @@ def bls_kernels_phase(n_sms, max_mhz):
         want_f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
         want_prod, want_ok = pairing_torch.product_final(
             want_f.reshape(2, k, 12, 32))
+        batch = (xp.reshape(2, k, 32), yp.reshape(2, k, 32),
+                 xq.reshape(2, k, 2, 32), yq.reshape(2, k, 2, 32),
+                 skip.reshape(2, k))
+        new_prod, new_ok = bls381_cuda.pairing_check(*batch)
+        plain_prod, plain_ok = pairing_torch.check_plain(*batch)
         torch.cuda.synchronize()
         err = max(_max_err(f, want_f), _max_err(prod, want_prod))
         max_err["bls381_pairing"] = max(max_err["bls381_pairing"], err)
         check(err == 0, f"bls381_pairing != plain at k = {k} ({err})")
-        check(ok.tolist() == want_ok.tolist() == [True, False],
-              f"bls381_pairing verdicts at k = {k}: {ok.tolist()}, plain "
-              f"{want_ok.tolist()}, expected [True, False]")
+        new_err = max(_max_err(new_prod, prod), _max_err(new_prod, plain_prod))
+        max_err["bls381_check"] = max(max_err["bls381_check"], new_err)
+        check(new_err == 0, f"bls381_check != miller + product_final or its "
+              f"plain version at k = {k} ({new_err})")
+        verdicts = [ok.tolist(), want_ok.tolist(), new_ok.tolist(),
+                    plain_ok.tolist()]
+        check(all(v == [True, False] for v in verdicts),
+              f"pairing verdicts at k = {k} (old kernel, its plain version, "
+              f"bls381_check, its plain version): {verdicts}, expected "
+              f"[True, False]")
         print(f"bls381_pairing: Miller values and products == plain bit "
-              f"for bit at k = {k}, verdicts [valid, invalid] == [True, "
-              f"False]", flush=True)
+              f"for bit at k = {k}; bls381_check: the product before the "
+              f"final exponentiation == miller + product_final == its plain "
+              f"version bit for bit; verdicts [valid, invalid] == [True, "
+              f"False] in all four", flush=True)
 
-    # the main path's shapes: one Verify's check (k = 2), one hashed
-    # message's ladder and its affine normalization
+    jobs = [_pairing_jobs(2, i % 2 == 0) for i in range(CHECK_JOBS)]
+    batch = tuple(torch.stack([j[c] for j in jobs]) for c in range(4)) + (
+        torch.zeros(CHECK_JOBS, 2, dtype=torch.bool, device=CARD),)
+    new_prod, new_ok = bls381_cuda.pairing_check(*batch)
+    f = bls381_cuda.miller(*(c.reshape((2 * CHECK_JOBS,) + c.shape[2:])
+                             for c in batch))
+    prod, ok = bls381_cuda.product_final(f.reshape(CHECK_JOBS, 2, 12, 32))
+    plain_prod, plain_ok = pairing_torch.check_plain(*batch)
+    torch.cuda.synchronize()
+    err = max(_max_err(new_prod, prod), _max_err(new_prod, plain_prod))
+    max_err["bls381_check"] = max(max_err["bls381_check"], err)
+    expected = [True, False] * (CHECK_JOBS // 2)
+    check(err == 0 and new_ok.tolist() == ok.tolist() == plain_ok.tolist()
+          == expected, f"bls381_check at {CHECK_JOBS} jobs of k = 2: "
+          f"err {err}, verdicts {new_ok.tolist()}")
+    print(f"bls381_check: {CHECK_JOBS} jobs of k = 2 == miller + "
+          f"product_final == its plain version bit for bit, verdicts "
+          f"[True, False] x {CHECK_JOBS // 2}", flush=True)
+
+    # the main path's shapes, old and new side by side: one check of two
+    # pairs, one hashed message's cofactor clearing with its affine words
     times = {}
     xp, yp, xq, yq = _pairing_jobs(2, True)
     skip = torch.zeros(2, dtype=torch.bool, device=CARD)
+    one_job = (xp[None], yp[None], xq[None], yq[None], skip[None])
 
     def check_once():
         f = bls381_cuda.miller(xp, yp, xq, yq, skip)
@@ -1461,27 +1643,38 @@ def bls_kernels_phase(n_sms, max_mhz):
     def check_plain():
         f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
         return pairing_torch.product_final(f.reshape(1, 2, 12, 32))
+
+    def check_new():
+        return bls381_cuda.pairing_check(*one_job)
     got, want = check_once(), check_plain()
-    check(_max_err(got[0], want[0]) == 0 and bool(got[1][0]),
-          "bls381_pairing at the main path's shape")
+    new = check_new()
+    check(_max_err(got[0], want[0]) == 0 and bool(got[1][0])
+          and _max_err(new[0], got[0]) == 0 and bool(new[1][0]),
+          "bls381_pairing and bls381_check at the main path's shape")
     products = 2 * MILLER_PRODUCTS + 54 + FINAL_EXP_PRODUCTS
     times["bls381_pairing"] = (graph_ms(check_once, 5),
                                cuda_ms(check_plain, 1),
                                *op_bound(products, (2 * 72 + 144) * 4,
                                          n_sms, max_mhz))
+    new_plain_ms, check_products = plain_products(
+        lambda: pairing_torch.check_plain(*one_job))
+    times["bls381_check"] = (graph_ms(check_new, 5), new_plain_ms,
+                             *op_bound(check_products, (2 * 72 + 144) * 4,
+                                       n_sms, max_mhz))
     pt = _ladder_points(1)
     bits = h_bits.expand(1, -1)
     check(_max_err(bls381_cuda.g2_ladder(pt, bits), curve_torch
                    .point_scalar_mul(curve_torch.F2, pt, bits)) == 0,
           "bls381_g2 at the main path's shape")
     ones = int(bls_cuda._H_EFF_BITS.sum()) - 1      # the first add is free
-    products = len(bls_cuda._H_EFF_BITS) * G2_DOUBLE_PRODUCTS \
+    ladder_products = len(bls_cuda._H_EFF_BITS) * G2_DOUBLE_PRODUCTS \
         + ones * G2_ADD_PRODUCTS
     times["bls381_g2"] = (
         graph_ms(lambda: bls381_cuda.g2_ladder(pt, bits), 5),
         cuda_ms(lambda: curve_torch.point_scalar_mul(curve_torch.F2, pt,
                                                      bits), 1),
-        *op_bound(products, (72 * 2 + len(bls_cuda._H_EFF_BITS) / 4) * 4,
+        *op_bound(ladder_products,
+                  (72 * 2 + len(bls_cuda._H_EFF_BITS) / 4) * 4,
                   n_sms, max_mhz))
     cleared = bls381_cuda.g2_ladder(pt, bits)
 
@@ -1491,20 +1684,50 @@ def bls_kernels_phase(n_sms, max_mhz):
         zinv2 = ft.fq2_square(zinv)
         zinv3 = ft.fq2_mul(zinv2, zinv)
         return ft.fq2_mul(torch.stack([X, Y]), torch.stack([zinv2, zinv3]))
-    got = torch.stack(bls_cuda._to_affine_g2(cleared))
+    got = torch.stack(_old_affine_g2(cleared))
     check(_max_err(got, normalize_plain()) == 0,
           "bls381_field at the main path's shape (affine normalization)")
     products = FQ2_INV + 2 + 3 + 2 * 3
     times["bls381_field"] = (
-        graph_ms(lambda: bls_cuda._to_affine_g2(cleared), 5),
+        graph_ms(lambda: _old_affine_g2(cleared), 5),
         cuda_ms(normalize_plain, 1),
         *op_bound(products, (24 * 2 + 24 * 2 + 24 * 3 + 24 * 6) * 4, n_sms,
+                  max_mhz))
+    new = bls381_cuda.clear_cofactor_g2(pt)
+    check(_max_err(new[:2], got.unbind(0)) == 0 and not bool(new[2][0]),
+          "bls381_cofactor at the main path's shape")
+    cofactor_plain_ms, cofactor_plain_products = plain_products(
+        lambda: curve_torch.clear_cofactor_g2_plain(pt))
+    times["bls381_cofactor"] = (
+        graph_ms(lambda: bls381_cuda.clear_cofactor_g2(pt), 5),
+        cofactor_plain_ms,
+        *op_bound(COFACTOR_METHOD_PRODUCTS, (72 + 48 + 48) * 4 + 1, n_sms,
                   max_mhz))
     for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
         print(f"{name} at the main path's shape: {ms:.6f} ms from a CUDA "
               f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
               f"ms by {bound_by}; no PyTorch call computes it, so no "
               f"library time")
+    old_a = times["bls381_g2"][0] + times["bls381_field"][0]
+    old_b = times["bls381_pairing"][0]
+    print(f"side by side, one point: bls381_cofactor "
+          f"{times['bls381_cofactor'][0]:.6f} ms against the ladder and the "
+          f"4-launch normalization {old_a:.6f} ms "
+          f"({old_a / times['bls381_cofactor'][0]:.2f}x); one check of "
+          f"k = 2: bls381_check {times['bls381_check'][0]:.6f} ms against "
+          f"miller + product_final {old_b:.6f} ms "
+          f"({old_b / times['bls381_check'][0]:.2f}x)")
+    print(f"products: bls381_cofactor {COFACTOR_METHOD_PRODUCTS} the "
+          f"method's (its bound), {COFACTOR_PRODUCTS} the kernel's (with the "
+          f"doublings its adds discard), {cofactor_plain_products} its plain "
+          f"version's counter; bls381_check {check_products}, its plain "
+          f"version's counter with its Fq inverse counted as the binary "
+          f"GCD's one product (its bound); the ladder {ladder_products}; "
+          f"dependent Fq product: "
+          f"{times['bls381_cofactor'][0] * 1e6 / COFACTOR_PRODUCTS:.1f} ns "
+          f"in bls381_cofactor (one thread), "
+          f"{times['bls381_g2'][0] * 1e6 / ladder_products:.1f} ns in the "
+          f"ladder")
     return max_err, times
 
 
@@ -1563,9 +1786,8 @@ class BlockRecorder:
     """Host clocks around the parts of a block's transition: the committee
     scans (every `get_active_validator_indices` call), host decode (point
     decompression and subgroup checks), hash-to-field with SSWU and the
-    isogeny, and the card's BLS work (the ladder, the affine normalization
-    and the pairing check, each timed to a synchronize, so the host clock
-    covers the kernels, their uploads and downloads); with the signature
+    isogeny, and the card's BLS work (the cofactor clearing and the
+    pairing check, each from its launch to a synchronize); with the signature
     pipeline on, the collection of the block's sets (its committee scans
     inside it), the committee sums and the one-launch fold (its host
     hash-to-field inside it)."""
@@ -1580,10 +1802,13 @@ class BlockRecorder:
             self._wrap("host decode", bls_cuda, name)
         for name in ("hash_to_field_fq2", "sswu_map", "iso_map"):
             self._wrap("hash-to-field, SSWU, isogeny", h2c, name)
-        self._wrap("card: ladder", curve_torch, "g2_scalar_mul", sync=True)
-        self._wrap("card: affine normalization", bls_cuda, "_to_affine_g2",
+        # both kernels at their launchers, a launch to its synchronize (a
+        # wrapper counts launches on its own module attribute, so it is
+        # not patched)
+        launchers = cuda_build.build()
+        self._wrap("card: cofactor clearing", launchers, "clear_cofactor",
                    sync=True)
-        self._wrap("card: pairing checks", pairing_torch, "pairing_check",
+        self._wrap("card: pairing checks", launchers, "pairing_check",
                    sync=True)
         self._wrap("hash_to_g2_batch", bls_cuda, "hash_to_g2_batch")
         self._wrap("process_slots", spec, "process_slots", instance=True)
@@ -1636,9 +1861,11 @@ def block_phase():
     at slot 98 with 8 full-committee attestations, a proposer and an
     attester slashing: 14 signature checks) through `state_transition`
     with BLS on and the device backend.  The root must equal the host
-    oracle and the JAX package's; every check must launch the ladder once
-    and the pairing kernel's two launches once; a copy whose first
-    attestation carries the wrong signature must be rejected there."""
+    oracle and the JAX package's; every check must launch the cofactor
+    kernel once and the four-warp pairing check once, and the kernels they
+    replace (the ladder, the field kernel, the pairing kernel's two
+    launches) never; a copy whose first attestation carries the wrong
+    signature must be rejected there."""
     spec = get_spec("phase0", "mainnet")
     merkle.use_device_hashing()
     t0 = time.perf_counter()
@@ -1683,16 +1910,17 @@ def block_phase():
     check(hashes == checks == n_checks,
           f"block: {hashes} hash-to-G2 calls and {checks} pairing checks, "
           f"expected {n_checks}")
-    check(per_wrapper["g2_ladder"] == hashes,
-          f"block: {per_wrapper['g2_ladder']} ladder launches for {hashes} "
-          f"hash-to-G2 calls")
-    check(per_wrapper["miller"] == per_wrapper["product_final"] == checks,
-          f"block: pairing launches {per_wrapper['miller']} + "
-          f"{per_wrapper['product_final']} for {checks} checks")
-    scalar_kernels = ("bls381_pairing", "bls381_g2", "bls381_field")
-    check(all(launches[name] > 0 for name in scalar_kernels),
-          f"block: a BLS kernel was not launched: {launches}")
+    check(per_wrapper["clear_cofactor_g2"] == hashes
+          and per_wrapper["pairing_check"] == checks,
+          f"block: {per_wrapper['clear_cofactor_g2']} cofactor and "
+          f"{per_wrapper['pairing_check']} pairing-check launches for "
+          f"{hashes} hash-to-G2 calls and {checks} checks")
+    replaced = ("g2_ladder", "field_op", "miller", "product_final")
+    check(all(per_wrapper[name] == 0 for name in replaced),
+          f"block: a replaced kernel was launched: {per_wrapper}")
     sec = rec.seconds
+    card_s = sec.get("card: cofactor clearing", 0) \
+        + sec.get("card: pairing checks", 0)
     print(f"block: state_transition {block_s:.6f} s with BLS on: "
           f"process_slots 97 -> 98 {sec.get('process_slots', 0):.6f} s, "
           f"committee scans {sec.get('committee scans', 0):.6f} s "
@@ -1701,9 +1929,9 @@ def block_phase():
           f"({rec.calls.get('host decode', 0)} points), hash-to-field with "
           f"SSWU and isogeny "
           f"{sec.get('hash-to-field, SSWU, isogeny', 0):.6f} s, card: "
-          f"ladder {sec.get('card: ladder', 0):.6f} s, affine "
-          f"normalization {sec.get('card: affine normalization', 0):.6f} s, "
-          f"pairing checks {sec.get('card: pairing checks', 0):.6f} s")
+          f"{card_s:.6f} s (cofactor clearing "
+          f"{sec.get('card: cofactor clearing', 0):.6f} s, pairing checks "
+          f"{sec.get('card: pairing checks', 0):.6f} s)")
     print(f"block: launches {per_wrapper} ({n_checks} signature checks)")
     print(f"block: root at slot {BLOCK_SLOT} {root.hex()} == host oracle == "
           f"JAX package")
@@ -2199,12 +2427,13 @@ def flush_phase():
     three must equal each other, the construction and the native oracle
     (every set at 16, ORACLE_SAMPLE seeded sets and the bad one at 256);
     the legs must be N + 1 folded and 2N unfolded; the bad set must be
-    isolated alone.  Returns the K2 launches of the staged and unfolded
-    runs."""
+    isolated alone.  Returns the launches of the staged and unfolded runs
+    by wrapper (K2, the G2 ladder of the staged multi-exponentiation, the
+    four-warp pairing check)."""
     bls.use_backend("cuda")
     bls.bls_active = True
     plain = _plain_counts()
-    g1_ladder_launches = 0
+    scalar_launches = {"g1_ladder": 0, "g2_ladder": 0, "pairing_check": 0}
     for n in FLUSH_SIZES:
         bad = (FLUSH_BAD,) if n == 16 else ()
         sets, _aggs, _sigs, _coeffs = flush_case(n, bad)
@@ -2235,16 +2464,18 @@ def flush_phase():
                       f"flush {n} {variant}: launches {launches}")
             else:
                 check(launches["fold_lanes"] == 0
-                      and launches["g1_ladder"] >= 1,
+                      and launches["g1_ladder"] >= 1
+                      and launches["pairing_check"] >= 1,
                       f"flush {n} {variant}: launches {launches}")
-                g1_ladder_launches += launches["g1_ladder"]
+                for name in scalar_launches:
+                    scalar_launches[name] += launches[name]
             print(f"flush {n} {variant}: verdicts == construction == "
                   f"oracle ({'set 8 isolated, ' if bad else ''}"
                   f"{snap.get('bisect_dispatches', 0)} bisection probes), "
                   f"{legs} Miller legs, {seconds:.6f} s; launches "
                   f"{launches}", flush=True)
     check(_plain_counts() == plain, "flush: a wrapper took its plain version")
-    return g1_ladder_launches
+    return scalar_launches
 
 
 PHASES = ("kernel", "main path", "incremental", "gather kernel", "epoch",
@@ -2291,7 +2522,7 @@ def main(argv=None):
     bls_err, bls_times = bls_kernels_phase(n_sms, max_mhz)
     bls_phase()
     flush_err, flush_times = flush_kernels_phase(n_sms, max_mhz)
-    g1_ladder_launches = flush_phase()
+    flush_launches = flush_phase()
     bls_launches, sig_launches = block_phase()
     t = times[MAIN_PATH_PAIRS]
     csrc = "consensus_specs_tpu_torch/ops/csrc/"
@@ -2301,12 +2532,18 @@ def main(argv=None):
         plain_ms=tm[name][1], bound_ms=tm[name][2], bound_by=tm[name][3],
         library_ms=None)
         for name, source, replaces, count, err, tm in (
-            ("bls381_pairing", "bls381_pairing.cu",
+            ("bls381_cofactor", "bls381_cofactor.cu",
+             "consensus_specs_tpu/ops/bls_tpu.py:38",
+             bls_launches["bls381_cofactor"], bls_err, bls_times),
+            ("bls381_check", "bls381_check.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:706",
-             bls_launches["bls381_pairing"], bls_err, bls_times),
+             bls_launches["bls381_check"], bls_err, bls_times),
+            ("bls381_pairing", "bls381_pairing.cu",
+             "consensus_specs_tpu/ops/pairing_jax.py:393",
+             sig_launches["bls381_pairing"], bls_err, bls_times),
             ("bls381_g2", "bls381_g2.cu",
              "consensus_specs_tpu/ops/curve_jax.py:175",
-             bls_launches["bls381_g2"], bls_err, bls_times),
+             flush_launches["g2_ladder"], bls_err, bls_times),
             ("bls381_field", "bls381_field.cu",
              "consensus_specs_tpu/ops/fq.py:265",
              bls_launches["bls381_field"], bls_err, bls_times),
@@ -2314,8 +2551,8 @@ def main(argv=None):
              "consensus_specs_tpu/ops/g1_sweep.py:84",
              sig_launches["bls381_segment_sum"], flush_err, flush_times),
             ("bls381_g1_ladder", "bls381_msm.cu",
-             "consensus_specs_tpu/ops/msm.py:271", g1_ladder_launches,
-             flush_err, flush_times),
+             "consensus_specs_tpu/ops/msm.py:271",
+             flush_launches["g1_ladder"], flush_err, flush_times),
             ("bls381_fold", "bls381_fold.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:568",
              sig_launches["bls381_fold"], flush_err, flush_times))]

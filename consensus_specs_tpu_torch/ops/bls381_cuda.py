@@ -1,9 +1,10 @@
 """The CUDA BLS12-381 kernels: layouts, launch and count.
 
 Counterparts of the XLA device programs of consensus_specs_tpu/ops/fq.py,
-fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Five
+fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Seven
 kernels, written for sm_90a on one set of device functions
-(csrc/bls381.cuh), built at first use with the port's other kernels
+(csrc/bls381.cuh, and for the last two its register-resident redesign
+csrc/bls381_reg.cuh), built at first use with the port's other kernels
 (ops/cuda_build.py):
 
 - csrc/bls381_pairing.cu, the pairing check in two launches: `miller`
@@ -15,7 +16,13 @@ kernels, written for sm_90a on one set of device functions
 - csrc/bls381_msm.cu, the segment sums of G1 or G2 points (`segment_sum`,
   K1) and the G1 ladder (`g1_ladder`, K2);
 - csrc/bls381_fold.cu, the lanes and the last pair of a folded signature
-  flush (`fold_lanes`, K4, with a K1 launch between its two launches).
+  flush (`fold_lanes`, K4, with a K1 launch between its two launches);
+- csrc/bls381_cofactor.cu, G2 cofactor clearing by the psi endomorphism
+  with the affine result (`clear_cofactor_g2`, a thread a point);
+- csrc/bls381_check.cu, the pairing check in one launch, four warps a job
+  (`pairing_check`).  These two replace the ladder, the field kernel and
+  the pairing kernel's two launches on the check-by-check path; the older
+  kernels stay for the signature flush and the staged multi-exponentiation.
 
 Each wrapper takes and returns the plain version's limb layout (int64
 [..., 32] 12-bit limbs, ops/fq.py) and repacks to the kernels' 12 x 32-bit
@@ -375,9 +382,86 @@ def product_final(f, final: bool = True):
 product_final.launches = 0
 product_final.plain_calls = 0
 
+def clear_cofactor_g2(pt):
+    """h_eff P of each Jacobian G2 point (X, Y, Z), each [n, 2, 32] int64
+    limbs, made affine: returns (x, y) [n, 2, 32] (zeros at infinity) and
+    inf bool [n].  The kernel on CUDA tensors (csrc/bls381_cofactor.cu, psi
+    and the affine words in one launch), the plain version
+    (curve_torch.clear_cofactor_g2_plain) on CPU tensors."""
+    X = pt[0]
+    for name, t in zip("XYZ", pt):
+        _check(f"clear_cofactor_g2 {name}", t, (2, 32), torch.int64, X.device)
+        if t.shape != X.shape or t.dim() != 3:
+            raise ValueError(f"clear_cofactor_g2: expected [n, 2, 32] "
+                             f"coordinates, got {tuple(t.shape)}")
+    if X.device.type == "cpu":
+        clear_cofactor_g2.plain_calls += 1
+        return curve_torch.clear_cofactor_g2_plain(pt)
+    kernels = cuda_build.build()
+    n = X.shape[0]
+    words = _words(torch.stack(pt, dim=1))            # [n, 3, 2, 12]
+    consts = _words(curve_torch.psi_consts(X.device))   # [2, 2, 12]
+    xy = torch.empty((n, 2, 2, fq.WORDS), dtype=torch.int32, device=X.device)
+    inf = torch.empty(n, dtype=torch.uint8, device=X.device)
+    if n:
+        kernels.clear_cofactor(words, consts, xy, inf, n)
+        clear_cofactor_g2.launches += 1
+    out = fq.from_words(xy)
+    return out[:, 0], out[:, 1], inf.to(torch.bool)
+
+
+clear_cofactor_g2.launches = 0
+clear_cofactor_g2.plain_calls = 0
+
+
+def pairing_check(xp, yp, xq, yq, skip):
+    """The pairing check of b jobs of k pairs: P = (xp, yp) [b, k, 32],
+    Q = (xq, yq) [b, k, 2, 32] affine Montgomery limbs, skip bool [b, k]
+    (pairs that contribute one).  Returns (product [b, 12, 32] of each
+    job's Miller values before the final exponentiation, ok bool [b]).  The
+    kernel on CUDA tensors (csrc/bls381_check.cu, one launch, four warps a
+    job), the plain version (pairing_torch.check_plain) on CPU tensors."""
+    if xp.dim() != 3:
+        raise ValueError(f"pairing_check: expected xp [b, k, 32], got "
+                         f"{tuple(xp.shape)}")
+    b, k = xp.shape[:2]
+    for name, t, suffix in (("xp", xp, (32,)), ("yp", yp, (32,)),
+                            ("xq", xq, (2, 32)), ("yq", yq, (2, 32))):
+        _check(f"pairing_check {name}", t, suffix, torch.int64, xp.device)
+        if tuple(t.shape) != (b, k) + suffix:
+            raise ValueError(f"pairing_check {name}: expected "
+                             f"{(b, k) + suffix}, got {tuple(t.shape)}")
+    if skip.shape != (b, k) or skip.dtype != torch.bool \
+            or skip.device != xp.device:
+        raise ValueError(f"pairing_check: expected a bool skip mask "
+                         f"[{b}, {k}] on {xp.device}")
+    if k < 1:
+        raise ValueError("pairing_check: a job needs k >= 1 pairs")
+    if xp.device.type == "cpu":
+        pairing_check.plain_calls += 1
+        return pairing_torch.check_plain(xp, yp, xq, yq, skip)
+    kernels = cuda_build.build()
+    dev = xp.device
+    g1 = _words(torch.stack([xp, yp], dim=2))          # [b, k, 2, 12]
+    g2 = _words(torch.stack([xq, yq], dim=2))          # [b, k, 2, 2, 12]
+    tq = torch.empty((b, k, 6 * fq.WORDS), dtype=torch.int32, device=dev)
+    prod = torch.empty((b, 12, fq.WORDS), dtype=torch.int32, device=dev)
+    ok = torch.zeros(b, dtype=torch.uint8, device=dev)
+    if b:
+        kernels.pairing_check(g1, g2, skip.to(torch.uint8).contiguous(), tq,
+                              prod, ok, k, b)
+        pairing_check.launches += 1
+    return fq.from_words(prod), ok.to(torch.bool)
+
+
+pairing_check.launches = 0
+pairing_check.plain_calls = 0
+
 # every wrapper of the BLS kernels, by kernel name (chip_smoke.py reads
 # and resets their counts); K1 and K2 share csrc/bls381_msm.cu
 WRAPPERS = {"bls381_pairing": (miller, product_final),
             "bls381_g2": (g2_ladder,), "bls381_field": (field_op,),
             "bls381_segment_sum": (segment_sum,),
-            "bls381_g1_ladder": (g1_ladder,), "bls381_fold": (fold_lanes,)}
+            "bls381_g1_ladder": (g1_ladder,), "bls381_fold": (fold_lanes,),
+            "bls381_cofactor": (clear_cofactor_g2,),
+            "bls381_check": (pairing_check,)}

@@ -3,13 +3,13 @@
 Counterpart of consensus_specs_tpu/ops/bls_tpu.py.  The split is the
 reference's: point decompression with subgroup checks, pubkey sums and
 hash-to-field, SSWU and the isogeny run on the host over Python ints
-(crypto/); the 636-bit h_eff cofactor ladder (ops/csrc/bls381_g2.cu) and the
-batched pairing check (ops/csrc/bls381_pairing.cu) run on the device of
-`consensus_specs_tpu_torch.get_device()`, the CUDA card by default.  The
-ladder's Jacobian outputs are made affine on the same device with the field
-kernel (ops/csrc/bls381_field.cu: Fq2 inverse, square and products) before
-they leave it; the reference made them affine on the host.  With
-`set_device("cpu")` every device step runs its plain torch version.
+(crypto/); the cofactor clearing h_eff P (ops/csrc/bls381_cofactor.cu, by
+the psi endomorphism, affine in the same launch; the reference ran a
+636-bit ladder and made its output affine on the host) and the batched
+pairing check (ops/csrc/bls381_check.cu, one launch, four warps a job) run on
+the device of `consensus_specs_tpu_torch.get_device()`, the CUDA card by
+default.  With `set_device("cpu")` every device step runs its plain torch
+version.
 
 The API takes lists of verification jobs and returns a verdict a job, with
 the reference's decode rules (a DecodeError or ValueError reads as an
@@ -40,6 +40,7 @@ from ..sigpipe.metrics import METRICS
 from . import bls381_cuda, cuda_build, curve_torch, fq, pairing_torch
 from . import fq_tower as ft
 
+# the bits of h_eff, msb-first: the fold's cofactor ladder walks them
 _H_EFF_BITS = np.array([int(b) for b in bin(h2c.H_EFF)[2:]], dtype=np.uint8)
 
 
@@ -47,23 +48,10 @@ def _device() -> torch.device:
     return cuda_build.require_device(_port.get_device())
 
 
-def _to_affine_g2(pt):
-    """Jacobian G2 limbs (X, Y, Z) [n, 2, 32] -> affine (x, y) limbs, on
-    their device with the field kernel: x = X / Z^2, y = Y / Z^3 (rows with
-    Z = 0 come out as zeros; the caller reads them as infinity)."""
-    X, Y, Z = pt
-    zinv = bls381_cuda.field_op("fq2_inv", Z)
-    zinv2 = bls381_cuda.field_op("fq2_square", zinv)
-    zinv3 = bls381_cuda.field_op("fq2_mul", zinv2, zinv)
-    xy = bls381_cuda.field_op("fq2_mul", torch.stack([X, Y]),
-                              torch.stack([zinv2, zinv3]))
-    return xy[0], xy[1]
-
-
 def hash_to_g2_batch(messages, dst=h2c.DST_G2):
     """Batched hash-to-curve: host hash-to-field, SSWU and isogeny, then one
-    device ladder launch for the 636-bit cofactor clearing and the affine
-    normalization on the device.  Returns oracle Points (affine, Z = 1)."""
+    device launch for the cofactor clearing h_eff P with its affine result.
+    Returns oracle Points (affine, Z = 1)."""
     if not messages:
         return []
     pre = []
@@ -72,13 +60,9 @@ def hash_to_g2_batch(messages, dst=h2c.DST_G2):
         q0 = h2c.iso_map(*h2c.sswu_map(u0))
         q1 = h2c.iso_map(*h2c.sswu_map(u1))
         pre.append(q0 + q1)
-    device = _device()
-    bits = torch.from_numpy(_H_EFF_BITS).to(device).expand(
-        len(pre), _H_EFF_BITS.shape[0])
-    pt = curve_torch.g2_scalar_mul(curve_torch.g2_pack(pre, device), bits)
-    x, y = _to_affine_g2(pt)
-    inf = ft.fq2_is_zero(pt[2]).tolist()
-    xs, ys = ft.fq2_unpack_mont(x), ft.fq2_unpack_mont(y)
+    x, y, inf = bls381_cuda.clear_cofactor_g2(
+        curve_torch.g2_pack(pre, _device()))
+    xs, ys, inf = ft.fq2_unpack_mont(x), ft.fq2_unpack_mont(y), inf.tolist()
     one = cv.Fq2(1, 0)
     return [cv.g2_infinity() if i else Point(xa, ya, one, cv.B2)
             for xa, ya, i in zip(xs, ys, inf)]

@@ -1,0 +1,78 @@
+// The batched BLS12-381 pairing check for Hopper (sm_90a) in one launch,
+// one block of four warps a job: the Miller loop of the job's k pairs into
+// one shared
+// accumulator, the product written out, then the final exponentiation and
+// the verdict, in the same warp.
+//
+// Replaces consensus_specs_tpu/ops/pairing_jax.py `pairing_check` in its
+// fused form `_pairing_check_fused` (`_miller_scan`, `_easy_part`,
+// `_hard_chain`) where bls381_pairing.cu ran it as two launches with one
+// thread a pair (launch 1) and one thread a job (launch 2).  The product
+// before the final exponentiation equals launch 2's bit for bit
+// (bls381_check.cuh says why), and the verdict is the same.
+//
+// What bounds it: operations, the CIOS products' 32-bit multiplies, and
+// their dependency chain within the job: a single Verify is one job, so a
+// thread a job left 31 lanes of its warp and 131 SMs idle.  Here 128
+// lanes (four warps, one on each sub-partition of an SM) share each tower
+// op's independent products (the 54 Fq products of an Fq12 product, the
+// 18 of a cyclotomic square, the steps of the job's pairs, f^2 beside the
+// first chunk's doubling steps) between barriers, with the job's Fq12
+// values in shared memory and each product in registers (bls381_reg.cuh).
+// Four warps, because one warp's products are bound by its sub-partition's
+// multiply pipe: about 2 us a dependent Fq product on the card, however
+// many of its lanes take part.  The critical path of a Miller bit falls
+// from about 124 dependent products to 5 (f^2 beside the first doubling
+// level, two more doubling levels, a product by each of the two lines);
+// the final exponentiation's Fq inverse is a binary GCD on the ALU pipe.
+//
+// Why no tensor cores or TMA: the work is chains of dependent 381-bit
+// products with carries over about 600 bytes of state; no wgmma tile fits
+// and nothing streams.  The resources that matter are the integer multiply
+// rate, registers, a block's lanes and shared memory (check_smem, about
+// 18 KB a job).
+//
+// Layouts (int32 tensors read as uint32 words, Montgomery form): g1
+// [b, k, 2, 12] (xp, yp), g2 [b, k, 2, 2, 12] (xq, yq) affine, skip uint8
+// [b, k]; tq [b, k, 72] is scratch for the twist points; writes prod
+// [b, 12, 12] and ok uint8 [b].
+
+#include "bls381_check.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(CHECK_LANES)
+bls381_check_kernel(const uint32_t* __restrict__ g1,
+                    const uint32_t* __restrict__ g2,
+                    const uint8_t* __restrict__ skip, uint32_t* tq,
+                    int64_t k, uint32_t* __restrict__ prod,
+                    uint8_t* __restrict__ ok) {
+  __shared__ check_smem s;
+  const int64_t job = blockIdx.x;
+  check_job_args j;
+  j.g1 = g1 + job * k * 2 * RQ_W;
+  j.g2 = g2 + job * k * 2 * RQ2_W;
+  j.skip = skip + job * k;
+  j.tq = tq + job * k * RG2_W;
+  j.k = k;
+  check_job(&s, j, prod + job * RQ12_W, ok + job);
+}
+
+}  // namespace
+
+// Plain C entry: b jobs of k >= 1 pairs, one block of four warps a job.
+// Launches on `stream` and returns cudaGetLastError() as an int.
+extern "C" int bls381_pairing_check_launch(const void* g1, const void* g2,
+                                           const void* skip, void* tq,
+                                           void* prod, void* ok, int64_t k,
+                                           int64_t b, void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b > 0) {
+    bls381_check_kernel<<<static_cast<unsigned int>(b), CHECK_LANES, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(g1), static_cast<const uint32_t*>(g2),
+        static_cast<const uint8_t*>(skip), static_cast<uint32_t*>(tq), k,
+        static_cast<uint32_t*>(prod), static_cast<uint8_t*>(ok));
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,6 +1,6 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
 // epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu,
-// bls381_msm.cu, bls381_fold.cu), for
+// bls381_msm.cu, bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu), for
 // torch.utils.cpp_extension.load.  The one file of the port that includes
 // PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
 // ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
@@ -44,6 +44,14 @@ extern "C" int bls381_fold_lanes_launch(const void* agg, const void* cbits,
 extern "C" int bls381_fold_tail_launch(const void* S, const void* consts,
                                        void* g1, void* g2, void* skip,
                                        int64_t k, void* stream);
+extern "C" int bls381_clear_cofactor_launch(const void* pts,
+                                            const void* consts, void* xy,
+                                            void* inf, int64_t n,
+                                            void* stream);
+extern "C" int bls381_pairing_check_launch(const void* g1, const void* g2,
+                                           const void* skip, void* tq,
+                                           void* prod, void* ok, int64_t k,
+                                           int64_t b, void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -167,6 +175,29 @@ void bls381_fold_tail(const torch::Tensor& S, const torch::Tensor& consts,
       skip.data_ptr(), k, c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
+// Kernel A: h_eff P of n G2 points by psi, affine (bls381_cofactor.cu).
+void bls381_clear_cofactor(const torch::Tensor& pts,
+                           const torch::Tensor& consts, torch::Tensor xy,
+                           torch::Tensor inf, int64_t n) {
+  const c10::cuda::CUDAGuard guard(pts.device());
+  const int rc = bls381_clear_cofactor_launch(
+      pts.data_ptr(), consts.data_ptr(), xy.data_ptr(), inf.data_ptr(), n,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// Kernel B: b pairing checks of k pairs, four warps a job (bls381_check.cu).
+void bls381_pairing_check(const torch::Tensor& g1, const torch::Tensor& g2,
+                          const torch::Tensor& skip, torch::Tensor tq,
+                          torch::Tensor prod, torch::Tensor ok, int64_t k,
+                          int64_t b) {
+  const c10::cuda::CUDAGuard guard(g1.device());
+  const int rc = bls381_pairing_check_launch(
+      g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), tq.data_ptr(),
+      prod.data_ptr(), ok.data_ptr(), k, b,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_pairs", &sha256_pairs, "SHA-256 of each 64-byte chunk pair");
@@ -187,4 +218,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the folded flush's lanes: weighting, cofactor and signature ladders");
   m.def("bls381_fold_tail", &bls381_fold_tail,
         "the folded flush's last pair (-G1, S)");
+  m.def("bls381_clear_cofactor", &bls381_clear_cofactor,
+        "G2 cofactor clearing by psi, affine");
+  m.def("bls381_pairing_check", &bls381_pairing_check,
+        "pairing checks, four warps a job");
 }

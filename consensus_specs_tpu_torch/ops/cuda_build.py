@@ -10,6 +10,10 @@ or library under `build/torch_ext/` beside the package:
 - else with one `nvcc` a source, all started together, linked with
   `nvcc -shared` into a plain C library loaded with ctypes.
 
+Every compile passes `-Xptxas=-v`, and the build's output, ptxas's report
+of each function's registers, stack and spill stores and loads among it,
+is kept in `build/torch_ext/build.log` (`BUILD_LOG`).
+
 Nothing is built while this module is imported.  `build()` returns the
 launchers; the wrappers in `sha256_cuda.py`, `epoch_sweep_cuda.py` and
 `bls381_cuda.py` check their tensors before they call one, and raise on a
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 from types import SimpleNamespace
 
 import torch
@@ -28,12 +33,14 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 KERNEL_SOURCES = tuple(os.path.join(CSRC, name) for name in (
     "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu",
     "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu", "bls381_msm.cu",
-    "bls381_fold.cu"))
+    "bls381_fold.cu", "bls381_cofactor.cu", "bls381_check.cu"))
 BINDING_SOURCE = os.path.join(CSRC, "kernels_bind.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_ext")
+BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 ARCH_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+BUILD_FLAGS = [*ARCH_FLAGS, "-Xptxas=-v"]
 
 _kernels = None     # SimpleNamespace of launchers, once built
 build_route = None  # "cpp_extension" or "ctypes", once built
@@ -57,12 +64,27 @@ def _check(name, rc):
 
 def _build_cpp_extension():
     from torch.utils import cpp_extension
-    ext = cpp_extension.load(
-        name="port_kernels_ext",
-        sources=[*KERNEL_SOURCES, BINDING_SOURCE],
-        build_directory=BUILD_DIR,
-        extra_cuda_cflags=ARCH_FLAGS,
-        verbose=False)
+    # verbose, with file descriptor 1 on the build log: ninja prints each
+    # command line there, then its compiler's output
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(BUILD_LOG, "w") as log:
+            os.dup2(log.fileno(), 1)
+            ext = cpp_extension.load(
+                name="port_kernels_ext",
+                sources=[*KERNEL_SOURCES, BINDING_SOURCE],
+                build_directory=BUILD_DIR,
+                extra_cuda_cflags=BUILD_FLAGS,
+                verbose=True)
+    except Exception as err:
+        with open(BUILD_LOG) as log:
+            tail = log.read()[-6000:]
+        raise RuntimeError(f"building the kernels failed:\n{tail}") from err
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
 
     def epoch(params, like):
         return ext.epoch_sweep(torch.from_numpy(params), like)
@@ -75,11 +97,13 @@ def _build_cpp_extension():
         field=field, ladder=ext.bls381_ladder, miller=ext.bls381_miller,
         final=ext.bls381_final, segment_sum=ext.bls381_segment_sum,
         g1_ladder=ext.bls381_g1_ladder, fold_lanes=ext.bls381_fold_lanes,
-        fold_tail=ext.bls381_fold_tail)
+        fold_tail=ext.bls381_fold_tail,
+        clear_cofactor=ext.bls381_clear_cofactor,
+        pairing_check=ext.bls381_pairing_check)
 
 
 def _nvcc(nvcc, args):
-    return subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", *args],
+    return subprocess.Popen([nvcc, *BUILD_FLAGS, "-std=c++17", *args],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
@@ -88,6 +112,7 @@ def _wait(proc):
     _out, err = proc.communicate()
     if proc.returncode:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+    return err
 
 
 def _build_ctypes():
@@ -98,8 +123,9 @@ def _build_ctypes():
                for src in KERNEL_SOURCES]
     compiles = [_nvcc(nvcc, ["-c", "-Xcompiler", "-fPIC", "-o", obj, src])
                 for src, obj in zip(KERNEL_SOURCES, objects)]
-    for proc in compiles:
-        _wait(proc)
+    with open(BUILD_LOG, "w") as log:
+        for src, proc in zip(KERNEL_SOURCES, compiles):
+            log.write(f"[nvcc] -c {src} \n{_wait(proc)}")
     lib_path = os.path.join(BUILD_DIR, "libport_kernels.so")
     _wait(_nvcc(nvcc, ["-shared", "-o", lib_path, *objects]))
     lib = ctypes.CDLL(lib_path)
@@ -132,8 +158,12 @@ def _build_ctypes():
                          ptr, ptr, i64, ptr]
     tail_fn = lib.bls381_fold_tail_launch
     tail_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
+    cofactor_fn = lib.bls381_clear_cofactor_launch
+    cofactor_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
+    check_fn = lib.bls381_pairing_check_launch
+    check_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
     for fn in (field_fn, ladder_fn, miller_fn, final_fn, segment_fn,
-               g1_ladder_fn, lanes_fn, tail_fn):
+               g1_ladder_fn, lanes_fn, tail_fn, cofactor_fn, check_fn):
         fn.restype = ctypes.c_int
 
     def stream_of(t):
@@ -205,11 +235,25 @@ def _build_ctypes():
             _check("bls381_fold (tail)", tail_fn(
                 S.data_ptr(), consts.data_ptr(), g1.data_ptr(),
                 g2.data_ptr(), skip.data_ptr(), k, stream_of(S)))
+
+    def clear_cofactor(pts, consts, xy, inf, n):
+        with torch.cuda.device(pts.device):
+            _check("bls381_cofactor", cofactor_fn(
+                pts.data_ptr(), consts.data_ptr(), xy.data_ptr(),
+                inf.data_ptr(), n, stream_of(pts)))
+
+    def pairing_check(g1, g2, skip, tq, prod, ok, k, b):
+        with torch.cuda.device(g1.device):
+            _check("bls381_check", check_fn(
+                g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), tq.data_ptr(),
+                prod.data_ptr(), ok.data_ptr(), k, b, stream_of(g1)))
     return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch,
                            field=field, ladder=ladder, miller=miller,
                            final=final, segment_sum=segment_sum,
                            g1_ladder=g1_ladder, fold_lanes=fold_lanes,
-                           fold_tail=fold_tail)
+                           fold_tail=fold_tail,
+                           clear_cofactor=clear_cofactor,
+                           pairing_check=pairing_check)
 
 
 def build():
@@ -222,9 +266,10 @@ def build():
     bits, nbits, out, n)`, `.miller(g1, g2, skip, f, n)` and `.final(f, k,
     do_final, prod, ok, b)`, `.segment_sum(g2, buf, length, out,
     segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, `.fold_lanes(agg,
-    cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2, skip, sw, k)` and
-    `.fold_tail(S, consts, g1, g2, skip, k)` (bls381_cuda.py gives the
-    layouts)."""
+    cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2, skip, sw, k)`,
+    `.fold_tail(S, consts, g1, g2, skip, k)`, `.clear_cofactor(pts, consts,
+    xy, inf, n)` and `.pairing_check(g1, g2, skip, tq, prod, ok, k, b)`
+    (bls381_cuda.py gives the layouts)."""
     global _kernels, build_route
     if _kernels is None:
         from torch.utils import cpp_extension

@@ -12,9 +12,11 @@ ladder kernel must equal them bit for bit).  The field ops of each formula
 level are stacked into one batched call (the plain version on the CPU pays
 per call, not per element); the values are the reference's.
 
-`g2_scalar_mul` is the entry point of the cofactor ladder: on a CUDA tensor
-it launches ops/csrc/bls381_g2.cu (ops/bls381_cuda.py), on a CPU tensor it
-runs `point_scalar_mul` here.
+`g2_scalar_mul` is the entry point of the G2 ladder: on a CUDA tensor it
+launches ops/csrc/bls381_g2.cu (ops/bls381_cuda.py), on a CPU tensor it
+runs `point_scalar_mul` here.  `clear_cofactor_g2_plain` is the plain
+version of ops/csrc/bls381_cofactor.cu: h_eff P by the psi endomorphism
+(RFC 9380 G.3), affine.
 
 Oracle: crypto/curve.py (the same group, other formulas: compare points,
 not coordinates).
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..crypto import curve as cv
+from ..crypto.fields import BLS_X, Q, Fq2
 from . import fq
 from . import fq_tower as ft
 
@@ -191,6 +194,61 @@ def g2_scalar_mul(p, bits):
     CPU tensor (ops/bls381_cuda.py g2_ladder)."""
     from . import bls381_cuda
     return bls381_cuda.g2_ladder(p, bits)
+
+
+# ---------------------------------------------------------------------------
+# G2 cofactor clearing by psi (plain version of csrc/bls381_cofactor.cu)
+# ---------------------------------------------------------------------------
+
+# |x| msb-first, its leading one included (64 bits, 6 ones)
+_X_ABS_BITS = tuple(int(b) for b in bin(-BLS_X)[2:])
+_PSI_CONSTS: dict = {}      # device -> (c_x, c_y) limbs, once a device
+
+
+def psi_consts(device="cpu"):
+    """psi's constants c_x = (1 + u)^-((q-1)/3), c_y = (1 + u)^-((q-1)/2)
+    as Fq2 Montgomery limbs [2, 2, 32] on `device`, from crypto.fields."""
+    key = str(torch.device(device))
+    if key not in _PSI_CONSTS:
+        xi = Fq2(1, 1)
+        _PSI_CONSTS[key] = ft.fq2_pack_mont(
+            [xi.pow((Q - 1) // 3).inv(), xi.pow((Q - 1) // 2).inv()], device)
+    return _PSI_CONSTS[key]
+
+
+def point_psi(pt, consts):
+    """psi on Jacobian G2 limbs: (conj(X) c_x, conj(Y) c_y, conj(Z))."""
+    X, Y, Z = pt
+    return (ft.fq2_mul(ft.fq2_conj(X), consts[0].expand_as(X)),
+            ft.fq2_mul(ft.fq2_conj(Y), consts[1].expand_as(Y)),
+            ft.fq2_conj(Z))
+
+
+def _mul_by_x(pt):
+    """[x] P for the negative BLS parameter x: the ladder over |x|, then
+    negate."""
+    bits = torch.tensor(_X_ABS_BITS, dtype=torch.uint8,
+                        device=pt[0].device).expand(pt[0].shape[0], -1)
+    return point_neg(F2, point_scalar_mul(F2, pt, bits))
+
+
+def clear_cofactor_g2_plain(pt):
+    """h_eff P for Jacobian G2 limbs (X, Y, Z) [n, 2, 32], affine: (x, y)
+    [n, 2, 32] (zeros at infinity) and inf bool [n].  RFC 9380 G.3's steps:
+    t1 = [x] P, t2 = psi(P), t3 = psi^2(2P) - t2, t2 = [x](t1 + t2),
+    h_eff P = t3 + t2 - t1 - P."""
+    consts = psi_consts(pt[0].device)
+    t1 = _mul_by_x(pt)
+    t2 = point_psi(pt, consts)
+    t3 = point_psi(point_psi(point_double(F2, pt), consts), consts)
+    t3 = point_add(F2, t3, point_neg(F2, t2))
+    t2 = _mul_by_x(point_add(F2, t1, t2))
+    t3 = point_add(F2, t3, t2)
+    t3 = point_add(F2, t3, point_neg(F2, t1))
+    out = point_add(F2, t3, point_neg(F2, pt))
+    from .pairing_torch import _g2_jacobian_to_affine
+    zero = torch.zeros_like(out[0][0])
+    return _g2_jacobian_to_affine(out, zero, zero)
 
 
 # ---------------------------------------------------------------------------

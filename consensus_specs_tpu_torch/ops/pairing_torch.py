@@ -16,11 +16,13 @@ result).
 
 `pairing_check`, `miller_partial_products`, `fq12_product_is_one` and
 `fold_partial_products` are the entry points.  They go through
-ops/bls381_cuda.py, which launches ops/csrc/bls381_pairing.cu on CUDA
-tensors (launch 1: a Miller loop a pair; launch 2: a job's product and final
-exponentiation), and for the fold first ops/csrc/bls381_fold.cu with a
-segment sum of ops/csrc/bls381_msm.cu, and runs the plain functions here on
-CPU tensors.  The reference's chunked mode, row buckets and `warmup` are XLA
+ops/bls381_cuda.py, which on CUDA tensors launches ops/csrc/bls381_check.cu
+for `pairing_check` (one launch, four warps a job; plain version
+`check_plain`) and ops/csrc/bls381_pairing.cu for the others (launch 1: a
+Miller loop a pair; launch 2: a job's product and final exponentiation),
+for the fold first ops/csrc/bls381_fold.cu with a segment sum of
+ops/csrc/bls381_msm.cu, and runs the plain functions here on CPU
+tensors.  The reference's chunked mode, row buckets and `warmup` are XLA
 compile and dispatch concerns with no counterpart.  Its `PAIRING_MODE` stays
 as the switch the signature pipeline reads (sigpipe/fold.py
 `one_launch_live`): "fused", the default, takes the one-launch fold,
@@ -276,16 +278,54 @@ def fq12_product_is_one(partials):
     return bool(ok[0])
 
 
+def check_plain(xp, yp, xq, yq, skip):
+    """Plain version of bls381_cuda.pairing_check (csrc/bls381_check.cu):
+    b jobs of k pairs ([b, k, ...] inputs), one Miller accumulator a job,
+    f <- f^2 prod_i l_i over its live pairs at each bit, conjugated at the
+    end, then the final exponentiation.  Returns (f [b, 12, 32], ok bool
+    [b]); f equals `product_final(miller_loop(...))`'s product: Fq12 is
+    commutative and conjugation a ring automorphism."""
+    b, k = xp.shape[:2]
+    one = ft.fq12_one((b, k), xp.device)
+    T = (xq, yq, ft.fq2_one(xq))
+    f = ft.fq12_one((b,), xp.device)
+
+    def times_lines(f, lines):
+        # the live pairs' lines (one for a skipped pair), multiplied by
+        # halving over the pairs axis, then into f
+        L = ft.fq12_select(skip, one, _line_to_fq12(*lines))
+        while L.shape[1] > 1:
+            if L.shape[1] % 2:
+                L = torch.cat([L, one[:, :1]], dim=1)
+            L = ft.fq12_mul(L[:, 0::2], L[:, 1::2])
+        return ft.fq12_mul(f, L[:, 0])
+    for bit in MILLER_BITS:
+        T, lines = _double_step(T, xp, yp)
+        f = times_lines(ft.fq12_square(f), lines)
+        if bit:
+            T, lines = _add_step(T, (xq, yq), xp, yp)
+            f = times_lines(f, lines)
+    f = ft.fq12_conj(f)
+    return f, ft.fq12_is_one(final_exponentiation(f))
+
+
 def pairing_check(xps, yps, xqs, yqs, skip=None):
     """Batched check  prod_i e(P_i, Q_i) == 1  over the trailing pairs axis.
 
     xps, yps: G1 affine [..., k, 32]; xqs, yqs: twist G2 affine
     [..., k, 2, 32], Montgomery limbs; skip: bool [..., k] (pairs that
-    contribute one).  Returns the verdicts, bool [...]: launch 1 then
-    launch 2 on the card, the plain functions on the CPU."""
+    contribute one).  Returns the verdicts, bool [...]: one launch of the
+    four-warps-a-job check on the card, its plain version on the CPU."""
     from . import bls381_cuda
-    f = _miller_values(xps, yps, xqs, yqs, skip)
-    _, ok = bls381_cuda.product_final(f, final=True)
+    k = xps.shape[-2]
+    b = xps[..., 0, 0].numel()
+    if skip is None:
+        skip = torch.zeros(xps.shape[:-1], dtype=torch.bool,
+                           device=xps.device)
+    _, ok = bls381_cuda.pairing_check(
+        xps.reshape(b, k, fq.LIMBS), yps.reshape(b, k, fq.LIMBS),
+        xqs.reshape(b, k, 2, fq.LIMBS), yqs.reshape(b, k, 2, fq.LIMBS),
+        skip.reshape(b, k).to(torch.bool))
     return ok.reshape(xps.shape[:-2])
 
 

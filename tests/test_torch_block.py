@@ -106,20 +106,20 @@ def _check_block(ref, pre, build, backend):
 
 def test_empty_block_on_the_device_backend(genesis):
     ref, g = genesis
-    before = bls381_cuda.miller.plain_calls
+    before = bls381_cuda.pairing_check.plain_calls
 
     def build(ref, state):
         block = build_empty_block_for_next_slot(ref, state)
         return state_transition_and_sign_block(ref, state, block)
     _check_block(ref, g, build, "cuda")
     # the block signature and the randao reveal, one check each
-    assert bls381_cuda.miller.plain_calls == before + 2
+    assert bls381_cuda.pairing_check.plain_calls == before + 2
 
 
 def test_attestation_block_on_the_device_backend(genesis):
     ref, g = genesis
     pre = _at_slot_1(ref, g)
-    ladders = bls381_cuda.g2_ladder.plain_calls
+    clears = bls381_cuda.clear_cofactor_g2.plain_calls
 
     def build(ref, state):
         attestation = get_valid_attestation(ref, state, signed=True)
@@ -130,7 +130,7 @@ def test_attestation_block_on_the_device_backend(genesis):
     state, _ = _check_block(ref, pre, build, "cuda")
     assert len(state.previous_epoch_attestations) + \
         len(state.current_epoch_attestations) == 1
-    assert bls381_cuda.g2_ladder.plain_calls == ladders + 3
+    assert bls381_cuda.clear_cofactor_g2.plain_calls == clears + 3
 
 
 def test_proposer_slashing_block(genesis):

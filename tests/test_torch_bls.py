@@ -134,9 +134,9 @@ def _device_verdicts(cases, picked):
 
 @pytest.fixture(scope="module")
 def tier1_verdicts(cases):
-    ladders = bls381_cuda.g2_ladder.plain_calls
+    clears = bls381_cuda.clear_cofactor_g2.plain_calls
     out = _device_verdicts(cases, _TIER1)
-    assert bls381_cuda.g2_ladder.plain_calls == ladders + 3
+    assert bls381_cuda.clear_cofactor_g2.plain_calls == clears + 3
     return out
 
 

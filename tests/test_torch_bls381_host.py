@@ -15,8 +15,12 @@ output against the plain version (`bls381_cuda.FIELD_OPS`,
 `pairing_torch._fold_lanes_plain`; the pairing launches in
 tests/test_torch_pairing.py, on the Miller values its fixture computed) bit
 for bit, so the kernels' arithmetic is checked on every run of the tests,
-not only on the card.  Without a C++ compiler
-on the host it skips with that reason.
+not only on the card.  The redesigned kernels' bodies come from
+`bls381_reg.cuh` and `bls381_check.cuh`, the same sources as
+`bls381_cofactor.cu` and `bls381_check.cu`: `cofactor_elem` a point, and
+`check_job`, whose warp levels run for lanes 0..31 in turn here (the
+portable product stands in for the PTX carry chains).  Without a C++
+compiler on the host it skips with that reason.
 """
 import ctypes
 import math
@@ -31,16 +35,18 @@ import torch
 import consensus_specs_tpu_torch as port
 from consensus_specs_tpu_torch.crypto import curve as cv
 from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
-from consensus_specs_tpu_torch.crypto.fields import Q
+from consensus_specs_tpu_torch.crypto.fields import Q, R
 from consensus_specs_tpu_torch.ops import (
-    bls381_cuda, cuda_build, fq, pairing_torch)
+    bls381_cuda, bls_cuda, cuda_build, fq, pairing_torch)
 from consensus_specs_tpu_torch.ops import curve_torch as ct
+from consensus_specs_tpu_torch.ops import fq_tower as ft
 
 SEED = 2026
 N = 4
 
 HARNESS = r"""
-#include "bls381.cuh"
+#include "bls381_check.cuh"
+#include <stdlib.h>
 extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
                       uint32_t* out, int64_t n) {
   const int w = field_op_words(op);
@@ -95,6 +101,36 @@ extern "C" void final(const uint32_t* f, int64_t k, int do_final,
   for (int64_t j = 0; j < b; ++j)
     final_elem(f + j * k * 144, k, do_final, prod + j * 144, ok + j);
 }
+// bls381_reg.cuh's Fq product and binary-GCD inverse, an element each
+extern "C" void reg_mul_inv(const uint32_t* a, const uint32_t* b,
+                            uint32_t* prod, uint32_t* inv, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    rq_mul(prod + i * 12, a + i * 12, b + i * 12);
+    rq_inv(inv + i * 12, a + i * 12);
+  }
+}
+// bls381_cofactor.cu's body, a point after another
+extern "C" void cofactor(const uint32_t* p, const uint32_t* consts,
+                         uint32_t* xy, uint8_t* inf, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    cofactor_elem(p + i * 72, consts, xy + i * 48, inf + i);
+}
+// bls381_check.cu's body, a job after another, each level's lanes in turn
+extern "C" void check(const uint32_t* g1, const uint32_t* g2,
+                      const uint8_t* skip, uint32_t* tq, int64_t k,
+                      uint32_t* prod, uint8_t* ok, int64_t b) {
+  check_smem* s = (check_smem*)malloc(sizeof(check_smem));
+  for (int64_t job = 0; job < b; ++job) {
+    check_job_args j;
+    j.g1 = g1 + job * k * 24;
+    j.g2 = g2 + job * k * 48;
+    j.skip = skip + job * k;
+    j.tq = tq + job * k * 72;
+    j.k = k;
+    check_job(s, j, prod + job * 144, ok + job);
+  }
+  free(s);
+}
 """
 
 
@@ -119,6 +155,9 @@ def host_lib(tmp_path_factory):
     lib.fold.argtypes = [p, p, i64, p, p, p, i64, p, p, p, p, p, i64]
     lib.miller.argtypes = [p, p, p, p, i64]
     lib.final.argtypes = [p, i64, ctypes.c_int, p, p, i64]
+    lib.reg_mul_inv.argtypes = [p, p, p, p, i64]
+    lib.cofactor.argtypes = [p, p, p, p, i64]
+    lib.check.argtypes = [p, p, p, p, i64, p, p, i64]
     return lib
 
 
@@ -250,3 +289,137 @@ def test_fold_lanes_equal_the_plain_version(host_lib, case):
         assert torch.equal(g, w)
     if case == "infinity sum":
         assert want[4].tolist() == [False, False, True]
+
+
+def test_register_product_and_inverse_equal_the_plain_version(host_lib):
+    """bls381_reg.cuh's inlined product (the portable body here) and its
+    binary-GCD inverse against `fq.mul` and the plain Fermat inverse, on
+    seeded elements with 0, 1 (Montgomery), q - 1 and the integer 1."""
+    rng = random.Random(f"{SEED}-reg")
+    vals = [0, fq.R_MONT, Q - 1, 1] + [rng.randrange(Q) for _ in range(12)]
+    n = len(vals)
+    a = fq.pack(vals)                    # the words as they are
+    b = fq.pack([rng.randrange(Q) for _ in range(n)])
+    wa, wb = _words(a), _words(b)
+    prod, inv = torch.empty_like(wa), torch.empty_like(wa)
+    host_lib.reg_mul_inv(wa.data_ptr(), wb.data_ptr(), prod.data_ptr(),
+                         inv.data_ptr(), n)
+    assert torch.equal(fq.from_words(prod), fq.mul(a, b))
+    assert torch.equal(fq.from_words(inv), ft.fq_inv(a))
+
+
+# the cofactor of G2 in E'(Fq2): 13^2 23^2 2713 11953 262069 times a large
+# prime
+G2_COFACTOR = int(
+    "5d543a95414e7f1091d50792876a202cd91de4547085abaa68a205b2e5a7ddfa628f1c"
+    "b4d9e82ef21537e293a6691ae1616ec6e786f0c70cf1c38e31c7238e5", 16)
+
+
+def cofactor_rows():
+    """Points of E'(Fq2) for the cofactor kernel: two hashed points before
+    their cofactor clearing (not in G2), the point at infinity and a point
+    of order 169, whose multiplications by x meet opposite and infinite
+    inputs in their adds and whose h_eff multiple is infinity."""
+    pre = []
+    for i in (0, 1, 2):
+        u0, u1 = h2c.hash_to_field_fq2(bytes([i]) * 3, 2, h2c.DST_G2)
+        pre.append(h2c.iso_map(*h2c.sswu_map(u0))
+                   + h2c.iso_map(*h2c.sswu_map(u1)))
+    return [pre[0], pre[1], cv.g2_infinity(),
+            pre[2] * (G2_COFACTOR * R // 169)]
+
+
+def test_cofactor_elem_equals_the_plain_versions_and_the_oracle(host_lib):
+    """bls381_cofactor.cu's body (psi, then affine) against its plain
+    version, the plain h_eff ladder made affine, and the JAX package's
+    oracle `crypto.hash_to_curve.clear_cofactor`, bit for bit on the
+    affine words and the infinity flags."""
+    from consensus_specs_tpu.crypto import hash_to_curve as ref_h2c
+    from consensus_specs_tpu.crypto import curve as ref_cv
+    rows = cofactor_rows()
+    pts = ct.g2_pack(rows)
+    words = _words(torch.stack(pts, dim=1))
+    consts = _words(ct.psi_consts())
+    xy = torch.empty((len(rows), 2, 2, 12), dtype=torch.int32)
+    inf = torch.empty(len(rows), dtype=torch.uint8)
+    host_lib.cofactor(words.data_ptr(), consts.data_ptr(), xy.data_ptr(),
+                      inf.data_ptr(), len(rows))
+    got = fq.from_words(xy)
+    x, y, want_inf = ct.clear_cofactor_g2_plain(pts)
+    assert torch.equal(got[:, 0], x) and torch.equal(got[:, 1], y)
+    assert inf.tolist() == want_inf.to(torch.uint8).tolist() == [0, 0, 1, 1]
+    bits = torch.from_numpy(bls_cuda._H_EFF_BITS).expand(len(rows), -1)
+    zero = torch.zeros(2, 32, dtype=torch.int64)
+    lx, ly, linf = pairing_torch._g2_jacobian_to_affine(
+        ct.point_scalar_mul(ct.F2, pts, bits), zero, zero)
+    assert torch.equal(got[:, 0], lx) and torch.equal(got[:, 1], ly)
+    assert torch.equal(linf, want_inf)
+    xs, ys = ft.fq2_unpack_mont(got[:, 0]), ft.fq2_unpack_mont(got[:, 1])
+    for i, p in enumerate(rows):
+        ref_p = ref_cv.Point(ref_cv.Fq2(p.x.c0, p.x.c1),
+                             ref_cv.Fq2(p.y.c0, p.y.c1),
+                             ref_cv.Fq2(p.z.c0, p.z.c1), ref_cv.B2)
+        want = ref_h2c.clear_cofactor(ref_p)
+        if want.is_infinity():
+            assert inf[i] == 1
+            continue
+        wx, wy = want.affine()
+        assert (xs[i].c0, xs[i].c1) == (wx.c0, wx.c1)
+        assert (ys[i].c0, ys[i].c1) == (wy.c0, wy.c1)
+
+
+def _check_jobs(case):
+    """(jobs [(pairs, skips)], expected verdicts) for the four-warp check:
+    "b2k2" a valid job and an invalid job whose first pair is skipped;
+    "k5" one valid job of five pairs, one skipped, over two chunks of the
+    kernel's four pair slots."""
+    g1, g2 = cv.g1_generator(), cv.g2_generator()
+    a, b = 0x1234567, 0x89ABCDE
+    if case == "b2k2":
+        return [([(g1 * a, g2 * b), (-(g1 * (a * b)), g2)], [False, False]),
+                ([(g1 * 5, g2 * 7), (g1 * a, g2)], [True, False])], \
+            [True, False]
+    pairs = [(g1 * (a + i), g2 * (3 + i)) for i in range(3)]
+    total = sum((a + i) * (3 + i) for i in range(3))
+    pairs += [(g1 * 11, g2 * 13), (-(g1 * total), g2)]
+    return [(pairs, [False, False, False, True, False])], [True]
+
+
+@pytest.mark.parametrize("case", ["b2k2", "k5"])
+def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
+    """bls381_check.cu's warp levels, each run for lanes 0..31 in turn:
+    the product of the job's Miller values before the final
+    exponentiation and the verdict, against `pairing_torch.miller_loop`
+    and `product_final` and against the plain version `check_plain`."""
+    jobs, expected = _check_jobs(case)
+    b, k = len(jobs), len(jobs[0][0])
+    xs1, ys1, xs2, ys2, skips = [], [], [], [], []
+    for pairs, skip in jobs:
+        for (p, q), s in zip(pairs, skip):
+            (x1, y1), (x2, y2) = p.affine(), q.affine()
+            xs1.append(x1.v)
+            ys1.append(y1.v)
+            xs2.append(x2)
+            ys2.append(y2)
+            skips.append(s)
+    xp, yp = fq.pack_mont(xs1), fq.pack_mont(ys1)
+    xq, yq = ft.fq2_pack_mont(xs2), ft.fq2_pack_mont(ys2)
+    skip = torch.tensor(skips)
+    g1w = _words(torch.stack([xp, yp], 1))
+    g2w = _words(torch.stack([xq, yq], 1))
+    skip8 = skip.to(torch.uint8).contiguous()
+    tq = torch.empty((b * k, 72), dtype=torch.int32)
+    prod = torch.empty((b, 12, 12), dtype=torch.int32)
+    ok = torch.zeros(b, dtype=torch.uint8)
+    host_lib.check(g1w.data_ptr(), g2w.data_ptr(), skip8.data_ptr(),
+                   tq.data_ptr(), k, prod.data_ptr(), ok.data_ptr(), b)
+    f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
+    want_prod, want_ok = pairing_torch.product_final(f.reshape(b, k, 12, 32))
+    assert torch.equal(fq.from_words(prod), want_prod)
+    assert ok.tolist() == [int(v) for v in want_ok] == \
+        [int(v) for v in expected]
+    plain_prod, plain_ok = pairing_torch.check_plain(
+        xp.reshape(b, k, 32), yp.reshape(b, k, 32),
+        xq.reshape(b, k, 2, 32), yq.reshape(b, k, 2, 32), skip.reshape(b, k))
+    assert torch.equal(plain_prod, want_prod)
+    assert plain_ok.tolist() == expected

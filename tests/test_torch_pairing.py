@@ -144,20 +144,34 @@ def test_kernel_device_functions_equal_the_plain_version(checked,
 
 def test_pairing_check_entry_point():
     """`pairing_check` over a [2, 2]-shaped batch of the valid and invalid
-    jobs, through the plain versions (one launch-1 and one launch-2 call
-    each, no kernel)."""
+    jobs, through the four-warp check's plain version (one call, no
+    kernel, and neither of the two-launch kernel's launches)."""
     jobs = _jobs()
     args = _pack([jobs["valid"], jobs["invalid"]])
-    calls = (bls381_cuda.miller.plain_calls,
+    calls = (bls381_cuda.pairing_check.plain_calls,
+             bls381_cuda.miller.plain_calls,
              bls381_cuda.product_final.plain_calls)
-    launches = (bls381_cuda.miller.launches,
+    launches = (bls381_cuda.pairing_check.launches,
+                bls381_cuda.miller.launches,
                 bls381_cuda.product_final.launches)
     assert pairing_torch.pairing_check(*args).tolist() == [True, False]
-    assert (bls381_cuda.miller.plain_calls,
+    assert (bls381_cuda.pairing_check.plain_calls,
+            bls381_cuda.miller.plain_calls,
             bls381_cuda.product_final.plain_calls) == (calls[0] + 1,
-                                                       calls[1] + 1)
-    assert (bls381_cuda.miller.launches,
+                                                       calls[1], calls[2])
+    assert (bls381_cuda.pairing_check.launches,
+            bls381_cuda.miller.launches,
             bls381_cuda.product_final.launches) == launches
+
+
+def test_check_plain_equals_miller_and_product_final(checked):
+    """The four-warp check's plain version (one Miller accumulator a job,
+    the lines multiplied by halving) on every job: its product before the
+    final exponentiation and its verdict equal launch 1 + launch 2's."""
+    _names, _jobs, args, _f, prod, ok = checked
+    got_prod, got_ok = pairing_torch.check_plain(*args)
+    assert torch.equal(got_prod, prod)
+    assert got_ok.tolist() == ok
 
 
 @pytest.mark.slow

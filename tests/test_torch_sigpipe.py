@@ -288,7 +288,8 @@ def test_block_with_sigpipe_equals_the_reference(attestation_block):
     # committee sum; no scalar check's ladder
     assert delta == {"bls381_pairing": 3, "bls381_g2": 0, "bls381_field": 0,
                      "bls381_segment_sum": 1, "bls381_g1_ladder": 0,
-                     "bls381_fold": 1}
+                     "bls381_fold": 1, "bls381_cofactor": 0,
+                     "bls381_check": 0}
 
 
 def test_tampered_block_raises_at_the_same_operation(attestation_block):
