@@ -5,17 +5,19 @@
 
     python3 chip_smoke.py --only flush,block   (chosen phases, no result)
 
-Drives the port's five paths on the card, the per-slot BeaconState root
+Drives the port's six paths on the card, the per-slot BeaconState root
 (slice 1), incremental re-roots (slice 2), the phase0 epoch transition
-(slice 3), phase0 block processing with every signature checked (slice 4)
-and the block's signature flush (slice 5), and holds every kernel of those
-paths against its plain PyTorch version:
+(slice 3), phase0 block processing with every signature checked (slice 4),
+the block's signature flush (slice 5) and the deneb KZG blob path (slice
+7), and holds every kernel of those paths against its plain PyTorch
+version:
 
 1. device: requires a CUDA card and prints its name and power limit;
 2. build: builds the kernels, SHA-256 pair-hash and gather-hash, the
    epoch sweep and the BLS12-381 pairing, G2 ladder, field, segment-sum, G1
-   ladder and fold kernels, from the repository's sources, and prints the
-   BLS kernels' registers and stack (cuobjdump);
+   ladder, fold, cofactor, check and Pippenger kernels, from the
+   repository's sources, and prints the BLS kernels' registers and stack
+   (cuobjdump);
 3. kernel: the pair-hash kernel against the plain torch version on the card,
    bit for bit, at 1, 255, 256, 257, 65,537, 2**17 and 2**20 pairs, with rows
    checked against hashlib, and the times of kernel (replayed from a CUDA
@@ -87,7 +89,19 @@ paths against its plain PyTorch version:
    then the same with `sigpipe.enable()`: the same root, 14 seam hits, one
    flush as one fold chain with no scalar ladder, and the tampered copy
    rejected at its attestation after bisection; prints each part's
-   seconds.
+   seconds;
+14. msm kernel: the Pippenger kernel (three launches) against its plain
+   torch version on the card, bit for bit, at 256 (edge rows), 300
+   (padded), 1,024 and 4,096 points of the ceremony basis, at 256 and 300
+   against the host oracle too; the times at 4,096 points of the kernel,
+   each launch, the lanes engine and the plain version, and the bound;
+15. kzg: the port's KZG engine on the ceremony setup with its device MSM
+   (the default): bench.py's six blobs of 4,096 field elements, their
+   commitments and blob proofs (12 Pippenger MSMs) equal to the JAX
+   package's (KZG_COMMITMENTS, KZG_PROOFS, scripts/torch_kzg_reference.py),
+   `verify_blob_kzg_proof_batch` True (three lincombs on the lanes engine,
+   one host pairing) and False with two proofs swapped (the attribution
+   counted), commit(constant c) == c G1; prints each part's host seconds.
 
 Each phase prints its seconds.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
@@ -289,7 +303,8 @@ def build_phase():
                              text=True).stdout.strip().splitlines()
     print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_pairing, "
           f"bls381_g2, bls381_field, bls381_msm (segment sums, G1 ladder), "
-          f"bls381_fold, bls381_cofactor and bls381_check built by "
+          f"bls381_fold, bls381_cofactor, bls381_check and bls381_pippenger "
+          f"built by "
           f"{cuda_build.build_route} into {cuda_build.BUILD_DIR} with nvcc "
           f"{release[-1] if release else 'of unknown version'}")
     print_resource_usage()
@@ -303,7 +318,8 @@ def print_resource_usage():
     tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
                         "cuobjdump")
     for name in ("bls381_pairing", "bls381_g2", "bls381_field", "bls381_msm",
-                 "bls381_fold", "bls381_cofactor", "bls381_check"):
+                 "bls381_fold", "bls381_cofactor", "bls381_check",
+                 "bls381_pippenger"):
         objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
                 if f.startswith(name) and f.endswith(".o")]
         if not objs or not os.path.exists(tool):
@@ -328,7 +344,8 @@ def print_resource_usage():
             threads = 65536 // max(regs, 1) // 32 * 32
             print(f"{name} {kernel}: {line.strip()} -> at most "
                   f"{min(threads, 2048)} resident threads an SM by registers")
-    print_spills(("bls381_cofactor.cu", "bls381_check.cu"))
+    print_spills(("bls381_cofactor.cu", "bls381_check.cu",
+                  "bls381_pippenger.cu"))
 
 
 def print_spills(sources):
@@ -1782,7 +1799,41 @@ def bls_phase():
            for w in ws] == plain, "bls: a wrapper took its plain version")
 
 
-class BlockRecorder:
+class HostClock:
+    """Host clocks around functions, wrapped in place on their owner (a
+    module, a launcher namespace, or an instance for its methods): the
+    seconds and calls of each label; `sync` times a call to a
+    synchronize of the card."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.calls = {}
+        self._saved = []
+
+    def _wrap(self, label, owner, name, instance=False, sync=False):
+        fn = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self.seconds[label] = self.seconds.get(label, 0.0) \
+                + time.perf_counter() - t0
+            self.calls[label] = self.calls.get(label, 0) + 1
+            return out
+        self._saved.append((owner, name, None if instance else fn))
+        setattr(owner, name, run)
+
+    def close(self):
+        for owner, name, fn in reversed(self._saved):
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
+
+
+class BlockRecorder(HostClock):
     """Host clocks around the parts of a block's transition: the committee
     scans (every `get_active_validator_indices` call), host decode (point
     decompression and subgroup checks), hash-to-field with SSWU and the
@@ -1793,9 +1844,7 @@ class BlockRecorder:
     hash-to-field inside it)."""
 
     def __init__(self, spec):
-        self.seconds = {}
-        self.calls = {}
-        self._saved = []
+        super().__init__()
         self._wrap("committee scans", spec, "get_active_validator_indices",
                    instance=True)
         for name in ("_resolve_pubkey", "_resolve_signature"):
@@ -1820,28 +1869,6 @@ class BlockRecorder:
                    sync=True)
         self._wrap("card: fold flush", shard_verify, "pairing_fold",
                    sync=True)
-
-    def _wrap(self, label, owner, name, instance=False, sync=False):
-        fn = getattr(owner, name)
-
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            self.seconds[label] = self.seconds.get(label, 0.0) \
-                + time.perf_counter() - t0
-            self.calls[label] = self.calls.get(label, 0) + 1
-            return out
-        self._saved.append((owner, name, None if instance else fn))
-        setattr(owner, name, run)
-
-    def close(self):
-        for owner, name, fn in reversed(self._saved):
-            if fn is None:
-                delattr(owner, name)
-            else:
-                setattr(owner, name, fn)
 
 
 def _bls_counts():
@@ -2059,6 +2086,7 @@ K2_TIMED = 256                    # a full block's weighting sweep
 K4_SIZES = ((14, 16), (256, 256))  # (sets, lanes): the block's flush pads
 K4_ORACLE = 1024
 G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS = 7, 16
+G1_MIXED_ADD_PRODUCTS = 11        # Jacobian + affine (Z = 1): 7M + 4S
 AFFINE_G1 = FQ_INV + 4            # inverse, square, three products
 AFFINE_G2 = FQ2_INV + 2 + 3 * 3
 
@@ -2478,9 +2506,351 @@ def flush_phase():
     return scalar_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the KZG blob path and the Pippenger G1 MSM
+# ---------------------------------------------------------------------------
+
+KZG_BLOBS = 6                   # bench.py N_BLOBS, deneb MAX_BLOBS_PER_BLOCK
+KZG_BLOB_SEED = 7               # bench.py bench_kzg's np.random.default_rng(7)
+CEREMONY_CONSTANT = 987654321   # tests/test_kzg.py's constant blob
+# the JAX package's host KZG on the ceremony setup over the six blobs
+# (scripts/torch_kzg_reference.py): commitments, blob proofs, and the
+# constant blob's commitment
+KZG_COMMITMENTS = (
+    "838232ef90ebd2dbba14aa42a0a04fd325338da2643d9403"
+    "29eeb49344efb2c4e3e0dccece4cab4003ea66375e1961c3",
+    "b7773765e868a7e9fc54956a9c422ec212bcaa1b3b89d6a6"
+    "4fc5df09f488eb322e459bad06c5989582439546a76a4626",
+    "84d8bd9550b2f07f99362fbca0c50f21f6f2c8113b8c94b7"
+    "e4b2e3be231ada0a437b5a6d27070c4eceaca05a6658893e",
+    "b4208e18648ebed2bd8a926fa5ffda14ed0626ca5ae89f1b"
+    "dfeec02661e6e0b19a6e3c0d3bdf59e00c605449c3114d02",
+    "a627d4a65e4eff1d09bd63205b9981d95f14e4ddbf76a776"
+    "c3d04386a0cf417cc9211c5c2584b6c9f8fe6337d1485900",
+    "b5aa5b1ab2f0f8d77e4b4f950b078af8d1f42b95e6897df5"
+    "058ab95b236354323b3de485d089dfe551e7d98fee74065c",
+)
+KZG_PROOFS = (
+    "aeb369dbaeff67b898a785ee2bd520b20e7105c90845ab6f"
+    "8feb5bb8271f41112a0fdfdacf34e2564127db5df2d5fa36",
+    "ae5a3e85ab810e2072dda597708ea4d932d1c935183aab89"
+    "b88b8ef344881ebd3d5e924d1a8235bc314b3e2b8c17915f",
+    "afec525bbb7b928a6f41bed925cb537f11b9a4a8453f417c"
+    "a16ca06e12d33174c9c7c2f2678319f75ddc6d02be7b3471",
+    "9205fb4cefe6451874602a8efc2f0191b567d13a0186a5df"
+    "ded0c862fdfaf078d2c6325a594029981f8fb214565ae2d6",
+    "8564b98533d90b8bfe34dc3f945a1242f0b869aa39eb5e78"
+    "e0e38038fcd7b2b965e87e58340423d444778bd2b6136628",
+    "981781039deabee7226b4ab8c8afb95df52d1a32fc7cb822"
+    "36daed110cd3bdc2d22d9c5aeba1f105e80b4c74e267e9a6",
+)
+KZG_CONSTANT_COMMITMENT = (
+    "8e561be3daa71004f1079f6e5de35a852cc5a167305fb100"
+    "4a447642981306118df2244de29566320a8fb4b727021f89")
+MSM_SIZES = (256, 300, 1024, 4096)  # 256: the edge rows; 300: padded
+MSM_TIMED = 4096                # a blob's commitment or proof
+# the Pippenger kernel's fixed adds a window besides the fold: the merge
+# rounds' 15 * 255 and the two scans' 2 * sum_r (255 - 2^r)
+PIPPENGER_MERGE_ADDS = 15 * 255
+PIPPENGER_SCAN_ADDS = 2 * sum(255 - (1 << r) for r in range(8))
+_KZG = {}
+
+
+def kzg_engine():
+    """The port's KZG engine on the ceremony setup (crypto/kzg.get_kzg),
+    its setup decompressed once; the seconds of the decompression."""
+    from consensus_specs_tpu_torch.crypto import kzg as kzg_mod
+    if not _KZG:
+        t0 = time.perf_counter()
+        kz = kzg_mod.get_kzg(4096)
+        kz.g1_lagrange_brp()
+        kz.g2_monomial()
+        _KZG.update(engine=kz, setup_s=time.perf_counter() - t0)
+    return _KZG["engine"]
+
+
+def kzg_blobs(width):
+    """bench.py bench_kzg's blobs: 31 seeded low bytes a field element."""
+    rng = np.random.default_rng(KZG_BLOB_SEED)
+    out = []
+    for _ in range(KZG_BLOBS):
+        elems = rng.integers(0, 256, size=(width, 32), dtype=np.uint8)
+        elems[:, 0] = 0
+        out.append(elems.tobytes())
+    return out
+
+
+def _msm_case(n):
+    """n points of the ceremony's Lagrange basis (the blob path's bases)
+    and seeded scalars below r; at 256 the reference test's edge rows
+    (scalars 0, 1, r - 1, the lowest window alone, the highest window
+    alone, an infinity point)."""
+    pts = list(kzg_engine().g1_lagrange_brp()[:n])
+    raw = np.random.default_rng([SEED, 21, n]).integers(
+        0, 256, size=(n, 32), dtype=np.uint8)
+    scalars = [int.from_bytes(row.tobytes(), "big") % R for row in raw]
+    if n == 256:
+        scalars[:5] = [0, 1, R - 1, 255, 1 << 248]
+        pts[5] = cv.g1_infinity()
+    return pts, scalars
+
+
+@phase("msm kernel")
+def msm_kernel_phase(n_sms, max_mhz):
+    """The Pippenger kernel (csrc/bls381_pippenger.cu, three launches)
+    against its plain torch version (ops/msm.py `_pippenger_g1`) on the
+    card, Jacobian words bit for bit, at 256 (edge rows), 300 (padded to
+    512), 1,024 and 4,096 points of the ceremony basis; at 256 and 300
+    also against the host oracle crypto/curve.msm; at each size the kernel
+    and the lanes engine on the same padded points (K2 at 256 bits, then
+    K1) from a CUDA graph, to weigh `g1_multi_exp`'s size threshold.  Then
+    at 4,096 points: each of the kernel's launches and the plain version,
+    beside the operation bound."""
+    from consensus_specs_tpu_torch.ops import msm
+    max_err = 0
+    t0 = time.perf_counter()
+    kzg_engine()
+    for n in MSM_SIZES:
+        pts, scalars = _msm_case(n)
+        pt, digits = msm._pippenger_inputs(pts, scalars, CARD)
+        got = bls381_cuda.pippenger_g1(pt, digits)
+        want = msm._pippenger_g1(*pt, digits)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err = max(max_err, err)
+        check(err == 0, f"pippenger_g1 != plain at {n} points ({err})")
+        oracle = ""
+        if n in (256, 300):
+            point = curve_torch.g1_unpack(tuple(c.cpu()[None] for c in got))
+            check(cv.g1_to_bytes(point[0])
+                  == cv.g1_to_bytes(cv.msm(pts, scalars)),
+                  f"pippenger_g1 at {n} points != crypto/curve.msm")
+            oracle = " == crypto/curve.msm,"
+        m = pt[0].shape[0]
+        bits = curve_torch.scalars_to_bits(scalars + [0] * (m - n), 256,
+                                           CARD)
+        engine_ms = (
+            graph_ms(lambda: bls381_cuda.pippenger_g1(pt, digits), 3),
+            graph_ms(lambda: bls381_cuda.segment_sum(tuple(
+                c[None] for c in bls381_cuda.g1_ladder(pt, bits))), 3))
+        print(f"bls381_pippenger: {n} points (padded to {m}) == plain bit "
+              f"for bit,{oracle} kernel {engine_ms[0]:.6f} ms, lanes "
+              f"engine {engine_ms[1]:.6f} ms from a CUDA graph "
+              f"({time.perf_counter() - t0:.6f} s into the phase)",
+              flush=True)
+
+    n = MSM_TIMED
+    pts, scalars = _msm_case(n)
+    pt, digits = msm._pippenger_inputs(pts, scalars, CARD)
+    kernel_ms = graph_ms(lambda: bls381_cuda.pippenger_g1(pt, digits), 3)
+    kernels = cuda_build.build()
+    words = fq.to_words(torch.stack(pt, dim=1)).contiguous()
+    d8 = digits.to(torch.uint8).contiguous()
+    n_win = bls381_cuda.PIPPENGER_WINDOWS
+    tables = torch.empty((n_win, bls381_cuda.PIPPENGER_LANES, 256, 3,
+                          fq.WORDS), dtype=torch.int32, device=CARD)
+    scan = torch.empty((n_win, 2, 255, 3, fq.WORDS), dtype=torch.int32,
+                       device=CARD)
+    G = torch.empty((n_win, 3, fq.WORDS), dtype=torch.int32, device=CARD)
+    out = torch.empty((3, fq.WORDS), dtype=torch.int32, device=CARD)
+    fold_ms = graph_ms(lambda: kernels.pippenger_fold(words, d8, n, tables),
+                       3)
+    window_ms = graph_ms(lambda: kernels.pippenger_window(tables, scan, G),
+                         3)
+    horner_ms = graph_ms(lambda: kernels.pippenger_horner(G, out), 3)
+    bits = curve_torch.scalars_to_bits(scalars, 256, CARD)
+
+    def lanes():
+        return bls381_cuda.segment_sum(tuple(
+            c[None] for c in bls381_cuda.g1_ladder(pt, bits)))
+    lanes_pt = curve_torch.g1_unpack(tuple(c.cpu() for c in lanes()))[0]
+    pip_pt = curve_torch.g1_unpack(tuple(
+        c.cpu()[None] for c in bls381_cuda.pippenger_g1(pt, digits)))[0]
+    check(cv.g1_to_bytes(lanes_pt) == cv.g1_to_bytes(pip_pt),
+          f"the lanes engine and the Pippenger kernel differ at {n} points")
+    lanes_ms = graph_ms(lanes, 3)
+    plain_ms = cuda_ms(lambda: msm._pippenger_g1(*pt, digits), 1, warmup=0)
+    # what the function needs: an add a nonzero digit (this run's
+    # digits; a mixed add where the point is affine, Z = 1 in the packed
+    # input, as every ceremony basis point is), 2 * 255 general adds a
+    # window to weigh the buckets, Horner's 248 doublings (the first 8
+    # double infinity) and 32 adds
+    nonzero = int((digits != 0).sum())
+    affine = (pt[2] == torch.from_numpy(fq.ONE_MONT_LIMBS).to(
+        pt[2])).all(dim=-1)
+    mixed = int(((digits != 0) & affine[None, :]).sum())
+    needed = mixed * G1_MIXED_ADD_PRODUCTS \
+        + (nonzero - mixed + 32 * 2 * 255 + 32) * G1_ADD_PRODUCTS \
+        + 248 * G1_DOUBLE_PRODUCTS
+    computed = (nonzero + 32 * (PIPPENGER_MERGE_ADDS + PIPPENGER_SCAN_ADDS)
+                + 32) * G1_ADD_PRODUCTS + 256 * G1_DOUBLE_PRODUCTS
+    n_bytes = n * (36 * 4 + 32) + 36 * 4
+    bound_ms, bound_by = op_bound(needed, n_bytes, n_sms, max_mhz)
+    computed_ms, _ = op_bound(computed, n_bytes, n_sms, max_mhz)
+    print(f"bls381_pippenger at {n} points: {kernel_ms:.6f} ms from a CUDA "
+          f"graph (fold {fold_ms:.6f} ms, window {window_ms:.6f} ms, Horner "
+          f"{horner_ms:.6f} ms), plain torch {plain_ms:.6f} ms; the lanes "
+          f"engine on the same points (K2 at 256 bits, then K1; == the "
+          f"kernel's point) {lanes_ms:.6f} ms; bound {bound_ms:.6f} ms by "
+          f"{bound_by} ({needed} Fq products: {nonzero} fold adds, "
+          f"{mixed} of them mixed, {32 * 2 * 255} bucket adds, Horner), "
+          f"the kernel computes "
+          f"{computed} ({computed_ms:.6f} ms at the same rate); no PyTorch "
+          f"call computes an MSM, so no library time")
+    times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, lanes_ms=lanes_ms)
+    return max_err, times
+
+
+class KzgRecorder(HostClock):
+    """Host clocks around the parts of the blob path: blob_to_polynomial,
+    the barycentric evaluations, the proofs (evaluation, quotient and MSM
+    together), the device MSMs with their host packing and digits, the
+    subgroup checks and the host pairings, and the card's launches (the
+    Pippenger kernel's three, the lanes engine's K2 and K1), each from its
+    launch to a synchronize."""
+
+    def __init__(self, kz):
+        super().__init__()
+        from consensus_specs_tpu_torch.crypto import pairing
+        from consensus_specs_tpu_torch.ops import msm
+        self._wrap("blob_to_polynomial", kz, "blob_to_polynomial",
+                   instance=True)
+        self._wrap("barycentric evaluation", kz,
+                   "evaluate_polynomial_in_evaluation_form", instance=True)
+        self._wrap("proof: evaluation, quotient and MSM", kz,
+                   "compute_kzg_proof_impl", instance=True)
+        self._wrap("device MSM with its host packing", kz, "g1_lincomb",
+                   instance=True)
+        self._wrap("subgroup checks", kz, "validate_kzg_g1", instance=True)
+        self._wrap("digits (_digits_np)", msm, "_digits_np")
+        self._wrap("point packing (g1_pack)", curve_torch, "g1_pack")
+        self._wrap("host pairings", pairing, "pairing_check")
+        self._wrap("batch lincombs", sig_fold, "fold_kzg_lincombs")
+        launchers = cuda_build.build()
+        for name in ("pippenger_fold", "pippenger_window",
+                     "pippenger_horner"):
+            self._wrap("card: Pippenger", launchers, name, sync=True)
+        for name in ("g1_ladder", "segment_sum"):
+            self._wrap("card: lanes engine", launchers, name, sync=True)
+
+    def report(self, step):
+        parts = ", ".join(f"{label} {sec:.6f} s ({self.calls[label]})"
+                          for label, sec in self.seconds.items())
+        print(f"kzg {step}: {parts}", flush=True)
+
+
+def _kzg_step(kz, step, fn):
+    """fn() with the blob path's host clocks on: (result, seconds,
+    recorder)."""
+    rec = KzgRecorder(kz)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        rec.close()
+    rec.report(step)
+    return out, seconds, rec
+
+
+@phase("kzg")
+def kzg_phase():
+    """The deneb blob path on the card through the port's KZG engine
+    (crypto/kzg.py, its device MSM installed by default): the ceremony
+    setup, bench.py's six blobs of 4,096 field elements, their
+    commitments and blob proofs (12 MSMs of 4,096 points on the Pippenger
+    kernel) and `verify_blob_kzg_proof_batch` (its three 6-point lincombs
+    on the lanes engine, one 2-leg host pairing), with the counts set to 0
+    just before and read just after.  The commitments and proofs must
+    equal the JAX package's (KZG_COMMITMENTS, KZG_PROOFS), the verdict must
+    be True; a copy with two proofs swapped must give False with the
+    attribution counted; commit(constant c) must equal c G1 and the JAX
+    package's.  Prints each part's host seconds.  Returns the launches by
+    wrapper."""
+    from consensus_specs_tpu_torch.crypto import kzg as kzg_mod
+    check(kzg_mod._device_msm is kzg_mod._default_device_msm
+          and kzg_mod._device_msm_threshold == 128,
+          f"kzg: device MSM {kzg_mod._device_msm} at "
+          f"{kzg_mod._device_msm_threshold}, not ops/msm.g1_multi_exp at 128")
+    kz = kzg_engine()
+    print(f"kzg: setup decompression (4,096 G1 Lagrange points, 65 G2 "
+          f"monomial points) {_KZG['setup_s']:.6f} s", flush=True)
+    blobs = kzg_blobs(kz.width)
+    plain = _plain_counts()
+    METRICS.reset()
+    _reset_bls_counts()
+    commitments, commit_s, _rec = _kzg_step(
+        kz, "commitments", lambda: [kz.blob_to_kzg_commitment(b)
+                                    for b in blobs])
+    proofs, proof_s, rec = _kzg_step(
+        kz, "proofs", lambda: [kz.compute_blob_kzg_proof(b, c)
+                               for b, c in zip(blobs, commitments)])
+    ok, verify_s, _rec = _kzg_step(
+        kz, "batch verify", lambda: kz.verify_blob_kzg_proof_batch(
+            blobs, commitments, proofs))
+    launches = _flush_counts()
+    snap = METRICS.snapshot()
+    check(_plain_counts() == plain, "kzg: a wrapper took its plain version")
+    sec = rec.seconds
+    quotient_s = sec["proof: evaluation, quotient and MSM"] \
+        - sec["barycentric evaluation"] \
+        - sec["device MSM with its host packing"]
+    print(f"kzg: {KZG_BLOBS} commitments {commit_s:.6f} s "
+          f"({commit_s / KZG_BLOBS:.6f} s a blob), {KZG_BLOBS} blob proofs "
+          f"{proof_s:.6f} s ({proof_s / KZG_BLOBS:.6f} s a blob; quotient "
+          f"{quotient_s:.6f} s in all), batch verify {verify_s:.6f} s; "
+          f"launches {launches}", flush=True)
+    check([c.hex() for c in commitments] == list(KZG_COMMITMENTS),
+          f"kzg: commitments {[c.hex()[:16] for c in commitments]} != the "
+          f"JAX package's")
+    check([p.hex() for p in proofs] == list(KZG_PROOFS),
+          f"kzg: proofs {[p.hex()[:16] for p in proofs]} != the JAX "
+          f"package's")
+    check(ok is True, f"kzg: batch verdict {ok} on valid proofs")
+    legs = snap.get("kzg_pairing_legs", {})
+    check(legs.get("count") == 1 and legs.get("total") == 2
+          and snap.get("kzg_batch_attributions", 0) == 0
+          and snap.get("fold_dispatches") == 1,
+          f"kzg: counters {snap}")
+    per_msm = bls381_cuda.PIPPENGER_LAUNCHES
+    check(launches["pippenger_g1"] == 2 * KZG_BLOBS * per_msm
+          and launches["g1_ladder"] == 3 and launches["segment_sum"] == 3,
+          f"kzg: launches {launches}, expected {2 * KZG_BLOBS} Pippenger "
+          f"MSMs of {per_msm} launches and three lincombs on K2 and K1")
+    print(f"kzg: {KZG_BLOBS} commitments and {KZG_BLOBS} proofs == the JAX "
+          f"package's, batch verdict True (one 2-leg pairing); "
+          f"{launches['pippenger_g1']} Pippenger launches "
+          f"({2 * KZG_BLOBS} MSMs), {launches['g1_ladder']} K2 and "
+          f"{launches['segment_sum']} K1 launches", flush=True)
+
+    METRICS.reset()
+    swapped = [proofs[1], proofs[0], *proofs[2:]]
+    bad, bad_s, _rec = _kzg_step(
+        kz, "batch verify, two proofs swapped",
+        lambda: kz.verify_blob_kzg_proof_batch(blobs, commitments, swapped))
+    snap = METRICS.snapshot()
+    check(bad is False and snap.get("kzg_batch_attributions") == 1,
+          f"kzg: swapped proofs gave {bad}, counters {snap}")
+    print(f"kzg: two proofs swapped: verdict False, the batch re-checked "
+          f"blob by blob ({snap['kzg_pairing_legs']['total']} legs in all), "
+          f"{bad_s:.6f} s", flush=True)
+
+    constant = kz.blob_to_kzg_commitment(
+        kzg_mod.bls_field_to_bytes(CEREMONY_CONSTANT) * kz.width)
+    check(constant == cv.g1_to_bytes(cv.g1_generator() * CEREMONY_CONSTANT)
+          and constant.hex() == KZG_CONSTANT_COMMITMENT,
+          f"kzg: commit(constant) {constant.hex()} != c G1 or the JAX "
+          f"package's")
+    print(f"kzg: commit(constant {CEREMONY_CONSTANT}) == c G1 == the JAX "
+          f"package's", flush=True)
+    return launches
+
+
 PHASES = ("kernel", "main path", "incremental", "gather kernel", "epoch",
           "epoch kernel", "bls kernels", "bls", "flush kernels", "flush",
-          "block")
+          "block", "msm kernel", "kzg")
 
 
 def main(argv=None):
@@ -2508,7 +2878,9 @@ def main(argv=None):
             "bls kernels": lambda: bls_kernels_phase(n_sms, max_mhz),
             "bls": bls_phase,
             "flush kernels": lambda: flush_kernels_phase(n_sms, max_mhz),
-            "flush": flush_phase, "block": block_phase}
+            "flush": flush_phase, "block": block_phase,
+            "msm kernel": lambda: msm_kernel_phase(n_sms, max_mhz),
+            "kzg": kzg_phase}
         for name in only:
             check(name in runs, f"phase {name} cannot run alone")
             runs[name]()
@@ -2524,6 +2896,8 @@ def main(argv=None):
     flush_err, flush_times = flush_kernels_phase(n_sms, max_mhz)
     flush_launches = flush_phase()
     bls_launches, sig_launches = block_phase()
+    msm_err, msm_times = msm_kernel_phase(n_sms, max_mhz)
+    kzg_launches = kzg_phase()
     t = times[MAIN_PATH_PAIRS]
     csrc = "consensus_specs_tpu_torch/ops/csrc/"
     bls_rows = [dict(
@@ -2555,7 +2929,14 @@ def main(argv=None):
              flush_launches["g1_ladder"], flush_err, flush_times),
             ("bls381_fold", "bls381_fold.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:568",
-             sig_launches["bls381_fold"], flush_err, flush_times))]
+             sig_launches["bls381_fold"], flush_err, flush_times),
+            ("bls381_pippenger", "bls381_pippenger.cu",
+             "consensus_specs_tpu/ops/msm.py:139",
+             kzg_launches["pippenger_g1"],
+             {"bls381_pippenger": msm_err},
+             {"bls381_pippenger": (msm_times["ms"], msm_times["plain_ms"],
+                                   msm_times["bound_ms"],
+                                   msm_times["bound_by"])}))]
     print(json.dumps({"kernels": [{
         "name": "sha256_pairs", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_pairs.cu",

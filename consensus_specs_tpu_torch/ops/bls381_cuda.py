@@ -1,11 +1,11 @@
 """The CUDA BLS12-381 kernels: layouts, launch and count.
 
 Counterparts of the XLA device programs of consensus_specs_tpu/ops/fq.py,
-fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Seven
+fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Eight
 kernels, written for sm_90a on one set of device functions
-(csrc/bls381.cuh, and for the last two its register-resident redesign
-csrc/bls381_reg.cuh), built at first use with the port's other kernels
-(ops/cuda_build.py):
+(csrc/bls381.cuh, and for the cofactor and check kernels its
+register-resident redesign csrc/bls381_reg.cuh), built at first use with
+the port's other kernels (ops/cuda_build.py):
 
 - csrc/bls381_pairing.cu, the pairing check in two launches: `miller`
   (launch 1, a Miller loop a pair) and `product_final` (launch 2, a job's
@@ -22,7 +22,10 @@ csrc/bls381_reg.cuh), built at first use with the port's other kernels
 - csrc/bls381_check.cu, the pairing check in one launch, four warps a job
   (`pairing_check`).  These two replace the ladder, the field kernel and
   the pairing kernel's two launches on the check-by-check path; the older
-  kernels stay for the signature flush and the staged multi-exponentiation.
+  kernels stay for the signature flush and the staged multi-exponentiation;
+- csrc/bls381_pippenger.cu, the windowed Pippenger G1 MSM of the KZG
+  engine in three launches (`pippenger_g1`; device bodies
+  csrc/bls381_pippenger.cuh on bls381.cuh).
 
 Each wrapper takes and returns the plain version's limb layout (int64
 [..., 32] 12-bit limbs, ops/fq.py) and repacks to the kernels' 12 x 32-bit
@@ -457,6 +460,62 @@ def pairing_check(xp, yp, xq, yq, skip):
 pairing_check.launches = 0
 pairing_check.plain_calls = 0
 
+
+def pippenger_g1(pt, digits):
+    """sum_i s_i P_i over G1 by the windowed Pippenger method at the
+    reference's parameters (8-bit windows, 16 bucket-table lanes): pt =
+    (X, Y, Z), each [n, 32] int64 Jacobian Montgomery limbs, n a multiple
+    of 16; digits [32, n] (any integer dtype, values below 256), window 0
+    most significant (ops/msm.py `_digits_np`).  Returns one Jacobian point
+    (X, Y, Z), each [32], equal to the plain version's bit for bit.
+
+    On CUDA tensors the three launches of csrc/bls381_pippenger.cu (the
+    fold, the windows' merge and scans, Horner), each counted; the bucket
+    tables (18.9 MB at any n) and scan buffers are scratch allocated here.
+    On CPU tensors the plain version (ops/msm.py `_pippenger_g1`)."""
+    X = pt[0]
+    for name, t in zip("XYZ", pt):
+        _check(f"pippenger_g1 {name}", t, (32,), torch.int64, X.device)
+        if t.shape != X.shape or t.dim() != 2:
+            raise ValueError(f"pippenger_g1: expected [n, 32] coordinates, "
+                             f"got {tuple(t.shape)}")
+    n = X.shape[0]
+    if n % PIPPENGER_LANES:
+        raise ValueError(f"pippenger_g1: {n} points is not a multiple of "
+                         f"{PIPPENGER_LANES}")
+    if digits.shape != (PIPPENGER_WINDOWS, n) or digits.device != X.device:
+        raise ValueError(f"pippenger_g1: expected digits "
+                         f"[{PIPPENGER_WINDOWS}, {n}] on {X.device}, got "
+                         f"{tuple(digits.shape)} on {digits.device}")
+    if X.device.type == "cpu":
+        pippenger_g1.plain_calls += 1
+        from . import msm
+        return msm._pippenger_g1(*pt, digits)
+    kernels = cuda_build.build()
+    dev = X.device
+    words = _words(torch.stack(pt, dim=1))            # [n, 3, 12]
+    d8 = digits.to(torch.uint8).contiguous()
+    tables = torch.empty((PIPPENGER_WINDOWS, PIPPENGER_LANES, 256, 3,
+                          fq.WORDS), dtype=torch.int32, device=dev)
+    scan = torch.empty((PIPPENGER_WINDOWS, 2, 255, 3, fq.WORDS),
+                       dtype=torch.int32, device=dev)
+    G = torch.empty((PIPPENGER_WINDOWS, 3, fq.WORDS), dtype=torch.int32,
+                    device=dev)
+    out = torch.empty((3, fq.WORDS), dtype=torch.int32, device=dev)
+    kernels.pippenger_fold(words, d8, n, tables)
+    pippenger_g1.launches += 1
+    kernels.pippenger_window(tables, scan, G)
+    pippenger_g1.launches += 1
+    kernels.pippenger_horner(G, out)
+    pippenger_g1.launches += 1
+    return tuple(fq.from_words(out).unbind(0))
+
+
+PIPPENGER_WINDOWS, PIPPENGER_LANES = 32, 16
+PIPPENGER_LAUNCHES = 3          # launches of one pippenger_g1 call
+pippenger_g1.launches = 0
+pippenger_g1.plain_calls = 0
+
 # every wrapper of the BLS kernels, by kernel name (chip_smoke.py reads
 # and resets their counts); K1 and K2 share csrc/bls381_msm.cu
 WRAPPERS = {"bls381_pairing": (miller, product_final),
@@ -464,4 +523,5 @@ WRAPPERS = {"bls381_pairing": (miller, product_final),
             "bls381_segment_sum": (segment_sum,),
             "bls381_g1_ladder": (g1_ladder,), "bls381_fold": (fold_lanes,),
             "bls381_cofactor": (clear_cofactor_g2,),
-            "bls381_check": (pairing_check,)}
+            "bls381_check": (pairing_check,),
+            "bls381_pippenger": (pippenger_g1,)}

@@ -1,6 +1,7 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
 // epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu,
-// bls381_msm.cu, bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu), for
+// bls381_msm.cu, bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu,
+// bls381_pippenger.cu), for
 // torch.utils.cpp_extension.load.  The one file of the port that includes
 // PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
 // ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
@@ -52,6 +53,13 @@ extern "C" int bls381_pairing_check_launch(const void* g1, const void* g2,
                                            const void* skip, void* tq,
                                            void* prod, void* ok, int64_t k,
                                            int64_t b, void* stream);
+extern "C" int bls381_pippenger_fold_launch(const void* pts,
+                                            const void* digits, int64_t n,
+                                            void* tables, void* stream);
+extern "C" int bls381_pippenger_window_launch(void* tables, void* scan,
+                                              void* G, void* stream);
+extern "C" int bls381_pippenger_horner_launch(const void* G, void* out,
+                                              void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -199,6 +207,35 @@ void bls381_pairing_check(const torch::Tensor& g1, const torch::Tensor& g2,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
+// The Pippenger G1 MSM's three launches (bls381_pippenger.cu): the fold of
+// n points by their digits into the bucket tables, each window's merge and
+// scans into G, Horner over G into out.
+void bls381_pippenger_fold(const torch::Tensor& pts,
+                           const torch::Tensor& digits, int64_t n,
+                           torch::Tensor tables) {
+  const c10::cuda::CUDAGuard guard(pts.device());
+  const int rc = bls381_pippenger_fold_launch(
+      pts.data_ptr(), digits.data_ptr(), n, tables.data_ptr(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+void bls381_pippenger_window(torch::Tensor tables, torch::Tensor scan,
+                             torch::Tensor G) {
+  const c10::cuda::CUDAGuard guard(tables.device());
+  const int rc = bls381_pippenger_window_launch(
+      tables.data_ptr(), scan.data_ptr(), G.data_ptr(),
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+void bls381_pippenger_horner(const torch::Tensor& G, torch::Tensor out) {
+  const c10::cuda::CUDAGuard guard(G.device());
+  const int rc = bls381_pippenger_horner_launch(
+      G.data_ptr(), out.data_ptr(), c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_pairs", &sha256_pairs, "SHA-256 of each 64-byte chunk pair");
   m.def("sha256_gather", &sha256_gather,
@@ -222,4 +259,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "G2 cofactor clearing by psi, affine");
   m.def("bls381_pairing_check", &bls381_pairing_check,
         "pairing checks, four warps a job");
+  m.def("bls381_pippenger_fold", &bls381_pippenger_fold,
+        "the Pippenger MSM's bucket fold, a thread a window and table lane");
+  m.def("bls381_pippenger_window", &bls381_pippenger_window,
+        "the Pippenger MSM's merge and suffix scans, a block a window");
+  m.def("bls381_pippenger_horner", &bls381_pippenger_horner,
+        "the Pippenger MSM's Horner pass over the windows");
 }

@@ -33,7 +33,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 KERNEL_SOURCES = tuple(os.path.join(CSRC, name) for name in (
     "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu",
     "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu", "bls381_msm.cu",
-    "bls381_fold.cu", "bls381_cofactor.cu", "bls381_check.cu"))
+    "bls381_fold.cu", "bls381_cofactor.cu", "bls381_check.cu",
+    "bls381_pippenger.cu"))
 BINDING_SOURCE = os.path.join(CSRC, "kernels_bind.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -99,7 +100,10 @@ def _build_cpp_extension():
         g1_ladder=ext.bls381_g1_ladder, fold_lanes=ext.bls381_fold_lanes,
         fold_tail=ext.bls381_fold_tail,
         clear_cofactor=ext.bls381_clear_cofactor,
-        pairing_check=ext.bls381_pairing_check)
+        pairing_check=ext.bls381_pairing_check,
+        pippenger_fold=ext.bls381_pippenger_fold,
+        pippenger_window=ext.bls381_pippenger_window,
+        pippenger_horner=ext.bls381_pippenger_horner)
 
 
 def _nvcc(nvcc, args):
@@ -162,8 +166,15 @@ def _build_ctypes():
     cofactor_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
     check_fn = lib.bls381_pairing_check_launch
     check_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
+    pip_fold_fn = lib.bls381_pippenger_fold_launch
+    pip_fold_fn.argtypes = [ptr, ptr, i64, ptr, ptr]
+    pip_window_fn = lib.bls381_pippenger_window_launch
+    pip_window_fn.argtypes = [ptr, ptr, ptr, ptr]
+    pip_horner_fn = lib.bls381_pippenger_horner_launch
+    pip_horner_fn.argtypes = [ptr, ptr, ptr]
     for fn in (field_fn, ladder_fn, miller_fn, final_fn, segment_fn,
-               g1_ladder_fn, lanes_fn, tail_fn, cofactor_fn, check_fn):
+               g1_ladder_fn, lanes_fn, tail_fn, cofactor_fn, check_fn,
+               pip_fold_fn, pip_window_fn, pip_horner_fn):
         fn.restype = ctypes.c_int
 
     def stream_of(t):
@@ -247,13 +258,33 @@ def _build_ctypes():
             _check("bls381_check", check_fn(
                 g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), tq.data_ptr(),
                 prod.data_ptr(), ok.data_ptr(), k, b, stream_of(g1)))
+
+    def pippenger_fold(pts, digits, n, tables):
+        with torch.cuda.device(pts.device):
+            _check("bls381_pippenger (fold)", pip_fold_fn(
+                pts.data_ptr(), digits.data_ptr(), n, tables.data_ptr(),
+                stream_of(pts)))
+
+    def pippenger_window(tables, scan, G):
+        with torch.cuda.device(tables.device):
+            _check("bls381_pippenger (window)", pip_window_fn(
+                tables.data_ptr(), scan.data_ptr(), G.data_ptr(),
+                stream_of(tables)))
+
+    def pippenger_horner(G, out):
+        with torch.cuda.device(G.device):
+            _check("bls381_pippenger (Horner)", pip_horner_fn(
+                G.data_ptr(), out.data_ptr(), stream_of(G)))
     return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch,
                            field=field, ladder=ladder, miller=miller,
                            final=final, segment_sum=segment_sum,
                            g1_ladder=g1_ladder, fold_lanes=fold_lanes,
                            fold_tail=fold_tail,
                            clear_cofactor=clear_cofactor,
-                           pairing_check=pairing_check)
+                           pairing_check=pairing_check,
+                           pippenger_fold=pippenger_fold,
+                           pippenger_window=pippenger_window,
+                           pippenger_horner=pippenger_horner)
 
 
 def build():
@@ -268,7 +299,9 @@ def build():
     segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, `.fold_lanes(agg,
     cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2, skip, sw, k)`,
     `.fold_tail(S, consts, g1, g2, skip, k)`, `.clear_cofactor(pts, consts,
-    xy, inf, n)` and `.pairing_check(g1, g2, skip, tq, prod, ok, k, b)`
+    xy, inf, n)`, `.pairing_check(g1, g2, skip, tq, prod, ok, k, b)` and
+    the Pippenger MSM's `.pippenger_fold(pts, digits, n, tables)`,
+    `.pippenger_window(tables, scan, G)` and `.pippenger_horner(G, out)`
     (bls381_cuda.py gives the layouts)."""
     global _kernels, build_route
     if _kernels is None:

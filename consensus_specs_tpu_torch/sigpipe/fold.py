@@ -13,6 +13,10 @@ so an N-set flush needs N + 1 Miller loops instead of 2N (the counted
 * :func:`fold_signatures`: S by the device G2 multi-exponentiation
   (ops/msm.g2_multi_exp: the G2 ladder, then one segment sum), for the
   staged chain.
+* :func:`fold_kzg_lincombs`: the KZG batch verifier's three shared-base
+  G1 lincombs (crypto/kzg.verify_kzg_proof_batch), the same algebra (N
+  untrusted points under Fiat-Shamir weights folding to a 2-leg pairing),
+  as three device MSMs (ops/msm.g1_multi_exp).
 * :func:`fold_flush`: the one-launch path (the device backend and the
   fused pairing mode): the cofactor ladder, the Fiat-Shamir G1 weighting,
   the G2 signature sum and the partial Miller product of the flush on the
@@ -23,8 +27,8 @@ so an N-set flush needs N + 1 Miller loops instead of 2N (the counted
 Bisection is untouched: probes re-derive every weighted pair on the host
 ladder (scheduler `group_valid`), so a corrupt fold can only fail the
 product, never flip a per-set verdict.  Unlike the reference there is no
-resilience dispatch and no host fold to fall back to: a device failure
-raises.  `fold_kzg_lincombs` waits for the KZG slice (ROADMAP A9).
+resilience dispatch and no host fold or host ladder to fall back to: a
+device failure raises.
 
 ``FOLD_VERIFY=0`` (or ``off``) is the reference's switch: the scheduler
 then emits the 2N-leg flush.  Resolved lazily: the env var is read at
@@ -82,6 +86,19 @@ def fold_signatures(sigs, coeffs):
     from ..ops import msm
     METRICS.inc("fold_dispatches")
     return msm.g2_multi_exp(sigs, coeffs)
+
+
+def fold_kzg_lincombs(proof_points, c_minus_ys, r_powers, r_times_z):
+    """The KZG batch verifier's three shared-base G1 lincombs,
+    sum r_i proof_i, sum (r_i z_i) proof_i and sum r_i (C_i - y_i), as one
+    fold dispatch of three device G1 MSMs (ops/msm.g1_multi_exp: the
+    kernels on the card, their plain versions on the CPU): returns
+    (proof_lincomb, proof_z_lincomb, c_minus_y_lincomb)."""
+    from ..ops import msm
+    METRICS.inc("fold_dispatches")
+    return (msm.g1_multi_exp(proof_points, r_powers),
+            msm.g1_multi_exp(proof_points, r_times_z),
+            msm.g1_multi_exp(c_minus_ys, r_powers))
 
 
 def fold_flush(aggs, coeffs, roots, sigs) -> bool:

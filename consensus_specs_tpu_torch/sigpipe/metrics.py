@@ -44,8 +44,12 @@ names:
 - `signatures_scheduled`, the observation `batch_size` and the histogram
   `batch_occupancy`: the sets each `verify_sets` call took;
 - `dispatches`: verification dispatches (a flush's product, a bisection
-  probe, a per-set batch); `fold_dispatches`: folded flushes and staged
-  G2 folds; `msm_dispatches`: Fiat-Shamir weighting sweeps;
+  probe, a per-set batch); `fold_dispatches`: folded flushes, staged
+  G2 folds and KZG batch lincombs; `msm_dispatches`: Fiat-Shamir
+  weighting sweeps;
+- `kzg_pairing_legs`: the pairing legs of each KZG blob batch verify
+  (2 batched, 2N blob by blob) and `kzg_batch_attributions`: failed
+  batches re-checked blob by blob (crypto/kzg.py);
 - `miller_loops_per_flush`: the pairing legs of each fused flush, N + 1
   folded against 2N unfolded; the labeled `fold_enabled` (`on`, `off`);
 - `fused_batch_failures`, `bisect_dispatches` and the observation

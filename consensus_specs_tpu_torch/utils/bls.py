@@ -20,8 +20,8 @@ Unlike the reference there is no resilience dispatch: no supervisor, no
 fault injection and no native fallback around a device call.  A device
 failure raises; the device backend never substitutes the oracle.  A decode
 failure is a False verdict on both backends, as in the reference.
-`multi_exp` is left out until the MSM kernels are ported; nothing on the
-block path calls it.
+`multi_exp` of MULTI_EXP_DEVICE_THRESHOLD points or more runs on the device
+backend's MSMs (ops/msm.py), the oracle below it and on "native".
 """
 from __future__ import annotations
 
@@ -263,6 +263,29 @@ def multiply(point, scalar):
 
 def neg(point):
     return _native().neg(point)
+
+
+# minimum batch size for device MSM dispatch: below this the per-call
+# transfer and launches dwarf the host Pippenger cost
+MULTI_EXP_DEVICE_THRESHOLD = 128
+
+
+def multi_exp(points, integers):
+    """Multi-scalar multiplication over G1 or G2 points (the reference's
+    arkworks multiexp slot).  The device backend routes batches of
+    MULTI_EXP_DEVICE_THRESHOLD points or more through the device MSMs,
+    G1 through ops/msm.g1_multi_exp and G2 through ops/msm.g2_multi_exp,
+    with no host fallback; smaller batches and the native backend take the
+    oracle."""
+    if _backend_name == "cuda" and len(points) >= MULTI_EXP_DEVICE_THRESHOLD:
+        from ..crypto import curve as cv
+        from ..ops import msm as device_msm
+        first = points[0]
+        if isinstance(first, cv.Point):
+            if isinstance(first.x, cv.Fq1):
+                return device_msm.g1_multi_exp(points, integers)
+            return device_msm.g2_multi_exp(points, integers)
+    return _native().multi_exp(points, integers)
 
 
 def pairing_check(values) -> bool:

@@ -19,8 +19,14 @@ not only on the card.  The redesigned kernels' bodies come from
 `bls381_reg.cuh` and `bls381_check.cuh`, the same sources as
 `bls381_cofactor.cu` and `bls381_check.cu`: `cofactor_elem` a point, and
 `check_job`, whose warp levels run for lanes 0..31 in turn here (the
-portable product stands in for the PTX carry chains).  Without a C++
-compiler on the host it skips with that reason.
+portable product stands in for the PTX carry chains).  The Pippenger MSM's
+three launches come from `bls381_pippenger.cuh`, the source of
+`bls381_pippenger.cu`, instantiated at 4-bit windows and 4 lanes (held bit
+for bit against ops/msm.py `_pippenger_g1` at the same parameters) and at
+the kernel's 8-bit windows and 16 lanes (held against the host oracle
+`crypto/curve.msm`); the window launch runs with one thread, which walks
+every element of each round.  Without a C++ compiler on the host it skips
+with that reason.
 """
 import ctypes
 import math
@@ -37,7 +43,7 @@ from consensus_specs_tpu_torch.crypto import curve as cv
 from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
 from consensus_specs_tpu_torch.crypto.fields import Q, R
 from consensus_specs_tpu_torch.ops import (
-    bls381_cuda, bls_cuda, cuda_build, fq, pairing_torch)
+    bls381_cuda, bls_cuda, cuda_build, fq, msm, pairing_torch)
 from consensus_specs_tpu_torch.ops import curve_torch as ct
 from consensus_specs_tpu_torch.ops import fq_tower as ft
 
@@ -46,6 +52,7 @@ N = 4
 
 HARNESS = r"""
 #include "bls381_check.cuh"
+#include "bls381_pippenger.cuh"
 #include <stdlib.h>
 extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
                       uint32_t* out, int64_t n) {
@@ -131,6 +138,31 @@ extern "C" void check(const uint32_t* g1, const uint32_t* g2,
   }
   free(s);
 }
+// bls381_pippenger.cu's three launches: every lane's fold, each window's
+// merge and scans by one thread, Horner
+template <int WB, int T>
+static void pip_run(const uint32_t* pts, const uint8_t* digits, int64_t n,
+                    uint32_t* out) {
+  using S = pip_shape<WB, T>;
+  uint32_t* tables = (uint32_t*)malloc(
+      sizeof(uint32_t) * S::kWindows * T * S::kSlots * PIP_PW);
+  uint32_t* scan = (uint32_t*)malloc(
+      sizeof(uint32_t) * S::kWindows * 2 * S::kBuckets * PIP_PW);
+  uint32_t G[S::kWindows * PIP_PW];
+  for (int w = 0; w < S::kWindows; ++w)
+    for (int t = 0; t < T; ++t)
+      pip_fold_lane<WB, T>(pts, digits, n, tables, w, t);
+  for (int w = 0; w < S::kWindows; ++w)
+    pip_window<WB, T>(tables, scan, G, w, 0, 1);
+  pip_horner<WB, T>(G, out);
+  free(tables);
+  free(scan);
+}
+extern "C" void pippenger(int small, const uint32_t* pts,
+                          const uint8_t* digits, int64_t n, uint32_t* out) {
+  if (small) pip_run<4, 4>(pts, digits, n, out);
+  else pip_run<8, 16>(pts, digits, n, out);
+}
 """
 
 
@@ -158,6 +190,7 @@ def host_lib(tmp_path_factory):
     lib.reg_mul_inv.argtypes = [p, p, p, p, i64]
     lib.cofactor.argtypes = [p, p, p, p, i64]
     lib.check.argtypes = [p, p, p, p, i64, p, p, i64]
+    lib.pippenger.argtypes = [ctypes.c_int, p, p, i64, p]
     return lib
 
 
@@ -423,3 +456,47 @@ def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
         xq.reshape(b, k, 2, 32), yq.reshape(b, k, 2, 32), skip.reshape(b, k))
     assert torch.equal(plain_prod, want_prod)
     assert plain_ok.tolist() == expected
+
+
+def _msm_rows(n, w_bits):
+    """n points (decoded from bytes, 8 distinct) and scalars with the
+    reference test's edge rows: 0, 1, r - 1, the lowest window alone, the
+    highest window alone, and an infinity point."""
+    rng = random.Random(f"{SEED}-msm-{n}")
+    g = cv.g1_generator()
+    base = [cv.g1_from_bytes(cv.g1_to_bytes(g * rng.randrange(1, R)),
+                             subgroup_check=False) for _ in range(8)]
+    pts = [base[i % 8] for i in range(n)]
+    scalars = [rng.randrange(R) for _ in range(n)]
+    scalars[:5] = [0, 1, R - 1, (1 << w_bits) - 1, 1 << (256 - w_bits)]
+    pts[5] = cv.g1_infinity()
+    return pts, scalars
+
+
+def _pippenger_host(host_lib, pt, digits, small):
+    words = _words(torch.stack(pt, dim=1))
+    d8 = digits.to(torch.uint8).contiguous()
+    out = torch.empty((3, 12), dtype=torch.int32)
+    host_lib.pippenger(int(small), words.data_ptr(), d8.data_ptr(),
+                       pt[0].shape[0], out.data_ptr())
+    return fq.from_words(out)
+
+
+def test_pippenger_bodies_equal_the_plain_version(host_lib):
+    """At 4-bit windows and 4 lanes, 12 points padded to 16: the Jacobian
+    words of the three launches' bodies equal `_pippenger_g1`'s."""
+    pts, scalars = _msm_rows(12, 4)
+    pt, digits = msm._pippenger_inputs(pts, scalars, "cpu", 4, 4)
+    got = _pippenger_host(host_lib, pt, digits, True)
+    want = msm._pippenger_g1(*pt, digits, w_bits=4, threads=4)
+    assert torch.equal(got, torch.stack(want))
+
+
+def test_pippenger_bodies_equal_the_oracle_at_full_windows(host_lib):
+    """At the kernel's 8-bit windows and 16 lanes and 256 points: the
+    result's compressed bytes equal `crypto/curve.msm`'s."""
+    pts, scalars = _msm_rows(256, 8)
+    pt, digits = msm._pippenger_inputs(pts, scalars, "cpu")
+    got = _pippenger_host(host_lib, pt, digits, False)
+    point = ct.g1_unpack(tuple(c[None] for c in got))[0]
+    assert cv.g1_to_bytes(point) == cv.g1_to_bytes(cv.msm(pts, scalars))

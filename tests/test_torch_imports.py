@@ -38,6 +38,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import consensus_specs_tpu_torch.ops.bls_cuda\n"
         "import consensus_specs_tpu_torch.utils.bls\n"
         "import consensus_specs_tpu_torch.crypto.bls12_381\n"
+        "import consensus_specs_tpu_torch.crypto.kzg\n"
         "import consensus_specs_tpu_torch.ops.g1_sweep\n"
         "import consensus_specs_tpu_torch.ops.msm\n"
         "import consensus_specs_tpu_torch.parallel.shard_verify\n"
