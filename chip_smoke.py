@@ -69,9 +69,12 @@ version:
    verdict equal to the native oracle's;
 11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128 and 64
    ragged segments up to 2,048, G2 at one segment of 1,024), the G1 ladder
-   (1,024 and 16,384 lanes of 64 bits) and the fold kernel with the Miller
-   product after it (k = 16 from 14 sets, and 256, valid and with one bad
-   set) against their plain torch versions on the card, bit for bit; at
+   (1,024 and 16,384 lanes of 64 bits, the larger on a seeded sample of
+   1,024 rows) and the fold kernels (a set's three legs as three kernels
+   on three streams, its cofactor by the psi kernel) with the Miller
+   product after it (k = 16 from 14
+   sets, and 256, valid and with one bad set) against their plain torch
+   versions on the card, bit for bit; at
    k = 1,024 the verdict and the 1,025 legs against the host's integers;
    the times of the block's shapes from a CUDA graph;
 12. flush: seeded flushes of 16 sets (set 8 bad) and 256 through
@@ -90,11 +93,12 @@ version:
    flush as one fold chain with no scalar ladder, and the tampered copy
    rejected at its attestation after bisection; prints each part's
    seconds;
-14. msm kernel: the Pippenger kernel (three launches) against its plain
-   torch version on the card, bit for bit, at 256 (edge rows), 300
-   (padded), 1,024 and 4,096 points of the ceremony basis, at 256 and 300
-   against the host oracle too; the times at 4,096 points of the kernel,
-   each launch, the lanes engine and the plain version, and the bound;
+14. msm kernel: the Pippenger kernel (five launches) against its plain
+   torch version and the host oracle on the card, the result's affine
+   words and compressed bytes, at 256 (edge rows), 300, 1,024
+   and 4,096 points of the ceremony basis and 4,096 with every scalar
+   equal; the kernel and the lanes engine timed at each size; at 4,096
+   points each launch, the plain version and the bound;
 15. kzg: the port's KZG engine on the ceremony setup with its device MSM
    (the default): bench.py's six blobs of 4,096 field elements, their
    commitments and blob proofs (12 Pippenger MSMs) equal to the JAX
@@ -344,7 +348,7 @@ def print_resource_usage():
             threads = 65536 // max(regs, 1) // 32 * 32
             print(f"{name} {kernel}: {line.strip()} -> at most "
                   f"{min(threads, 2048)} resident threads an SM by registers")
-    print_spills(("bls381_cofactor.cu", "bls381_check.cu",
+    print_spills(("bls381_cofactor.cu", "bls381_check.cu", "bls381_fold.cu",
                   "bls381_pippenger.cu"))
 
 
@@ -2017,7 +2021,9 @@ def sigpipe_block(spec, state, tampered_pre, signed, bad, n_checks):
           and snap.get("seam_misses", 0) == 0,
           f"sigpipe block: {snap.get('seam_hits')} seam hits and "
           f"{snap.get('seam_misses', 0)} misses, expected {n_checks} and 0")
-    check(launches["fold_lanes"] == 2 and launches["segment_sum"] >= 1
+    check(launches["fold_lanes"] == bls381_cuda.FOLD_LAUNCHES
+          and launches["clear_cofactor_g2"] >= 1
+          and launches["segment_sum"] >= 1
           and launches["g2_ladder"] == 0 and launches["miller"] == 1
           and launches["product_final"] == 2,
           f"sigpipe block: launches {launches}, expected one fold chain "
@@ -2082,13 +2088,16 @@ K1_RAGGED = (64, 2048)            # ragged lists up to MAX_VALIDATORS_PER_COMMIT
 K1_G2 = 1024                      # one G2 segment (a flush's signature sum)
 K1_PLAIN_SEGMENTS = 8             # plain halving segments a call on the card
 K2_SIZES = (1024, 16384)
+K2_SAMPLE = 1024                  # rows of a larger K2 run the plain version holds
 K2_TIMED = 256                    # a full block's weighting sweep
 K4_SIZES = ((14, 16), (256, 256))  # (sets, lanes): the block's flush pads
 K4_ORACLE = 1024
 G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS = 7, 16
 G1_MIXED_ADD_PRODUCTS = 11        # Jacobian + affine (Z = 1): 7M + 4S
-AFFINE_G1 = FQ_INV + 4            # inverse, square, three products
-AFFINE_G2 = FQ2_INV + 2 + 3 * 3
+# affine words, each inverse counted as GCD_FQ_INV (as in the psi leg's
+# COFACTOR_METHOD_PRODUCTS), whatever inverse the kernel computes
+AFFINE_G1 = GCD_FQ_INV + 4        # inverse, square, three products
+AFFINE_G2 = 4 + GCD_FQ_INV + 2 + 3 * 3
 
 
 def ladder_products(bits, double, add):
@@ -2191,14 +2200,14 @@ def _fold_chain_plain(aggP, cbits, hP, sP):
 
 def fold_products(k, n_sets, bits):
     """Fq products of the fold's lanes, sum and tail at k lanes, n_sets of
-    them live, over the coefficient bit rows `bits` (numpy [k, 64])."""
-    h_bits = bls_cuda._H_EFF_BITS[None]
+    them live, over the coefficient bit rows `bits` (numpy [k, 64]): the
+    two 64-bit ladders, the cofactor by the psi method with its affine
+    words (COFACTOR_METHOD_PRODUCTS), w's affine words, the signature
+    sum's adds and S's affine words."""
     live = bits[:n_sets]
     lanes = (ladder_products(live, G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS)
-             + n_sets * ladder_products(h_bits, G2_DOUBLE_PRODUCTS,
-                                        G2_ADD_PRODUCTS)
              + ladder_products(live, G2_DOUBLE_PRODUCTS, G2_ADD_PRODUCTS)
-             + n_sets * (AFFINE_G1 + AFFINE_G2))
+             + n_sets * (AFFINE_G1 + COFACTOR_METHOD_PRODUCTS))
     return lanes + (n_sets - 1) * G2_ADD_PRODUCTS + AFFINE_G2
 
 
@@ -2238,12 +2247,15 @@ def flush_kernels_phase(n_sms, max_mhz):
     """The flush's kernels against their plain torch versions on the card,
     bit for bit: K1 (segment sums) on G1 at a block's 8 x 128 and 64 ragged
     segments up to 2,048, on G2 at one segment of 1,024; K2 (the G1
-    ladder) at 1,024 and 16,384 lanes of 64 bits; K4 (the fold's lanes,
-    with its K1 and its tail) and the Miller product after it at k = 16
+    ladder) at 1,024 and 16,384 lanes of 64 bits (the larger on a seeded
+    sample of K2_SAMPLE rows); K4 (the fold's legs, with its K1 and its
+    tail) and the Miller product after it at k = 16
     (14 sets and two padded rows) and 256, valid and with one bad set.  At
     k = 1,024 the verdict and the 1,025 legs against the host's integer
     arithmetic.  Then the times of the block's shapes from a CUDA graph,
-    beside the plain versions' and the operation bounds."""
+    beside the plain versions' and the operation bounds (K4's with its
+    cofactor counted by the psi method), and K4's longest leg, the
+    cofactor kernel on the flush's hash points, alone."""
     max_err = {"bls381_segment_sum": 0, "bls381_g1_ladder": 0,
                "bls381_fold": 0}
     t0 = time.perf_counter()
@@ -2279,13 +2291,20 @@ def flush_kernels_phase(n_sms, max_mhz):
             0, 2**63, n, dtype=np.uint64) * 2 + 1]
         bits = curve_torch.scalars_to_bits(scal, 64, CARD)
         got = bls381_cuda.g1_ladder(pt, bits)
-        want = curve_torch.point_scalar_mul(curve_torch.F1, pt, bits)
+        # the plain version on every row up to K2_SAMPLE, else on a seeded
+        # sample of K2_SAMPLE rows
+        rows = torch.arange(n, device=CARD) if n <= K2_SAMPLE else \
+            torch.from_numpy(np.sort(np.random.default_rng(
+                [SEED, 14, n]).choice(n, K2_SAMPLE, replace=False))).to(CARD)
+        want = curve_torch.point_scalar_mul(
+            curve_torch.F1, tuple(c[rows] for c in pt), bits[rows])
         torch.cuda.synchronize()
-        err = _max_err(got, want)
+        err = _max_err(tuple(c[rows] for c in got), want)
         max_err["bls381_g1_ladder"] = max(max_err["bls381_g1_ladder"], err)
         check(err == 0, f"g1_ladder != plain at {n} lanes ({err})")
         print(f"bls381_g1_ladder: == plain bit for bit at {n} lanes of 64 "
-              f"bits ({time.perf_counter() - t0:.6f} s into the phase)",
+              f"bits ({'every row' if n <= K2_SAMPLE else f'{K2_SAMPLE} seeded rows'}; "
+              f"{time.perf_counter() - t0:.6f} s into the phase)",
               flush=True)
 
     for n_sets, k in K4_SIZES:
@@ -2300,8 +2319,7 @@ def flush_kernels_phase(n_sms, max_mhz):
             _prod, ok = bls381_cuda.product_final(got[None, None])
             pairs_plain, want = _fold_chain_plain(*inputs)
             pairs = bls381_cuda.fold_lanes(
-                *inputs, pairing_torch._h_eff_bits(CARD),
-                pairing_torch._fold_consts(CARD))
+                *inputs, pairing_torch._fold_consts(CARD))
             torch.cuda.synchronize()
             err = max(_max_err(got, want), _max_err(pairs, pairs_plain))
             max_err["bls381_fold"] = max(max_err["bls381_fold"], err)
@@ -2317,8 +2335,7 @@ def flush_kernels_phase(n_sms, max_mhz):
     _sets, aggs, sigs, coeffs = flush_case(K4_ORACLE)
     valid = shard_verify.fold_inputs(
         aggs, coeffs, [s.signing_root for s in _sets], sigs)
-    pairs = bls381_cuda.fold_lanes(*valid, pairing_torch._h_eff_bits(CARD),
-                                   pairing_torch._fold_consts(CARD))
+    pairs = bls381_cuda.fold_lanes(*valid, pairing_torch._fold_consts(CARD))
     pre = curve_torch.g2_unpack(tuple(c.cpu() for c in valid[2]))
     wrong = _legs_against_host(pairs, aggs, coeffs, pre, sigs)
     check(wrong == 0, f"fold at k = {K4_ORACLE}: {wrong} legs differ from "
@@ -2362,14 +2379,21 @@ def flush_kernels_phase(n_sms, max_mhz):
         aggs, coeffs, [s.signing_root for s in _sets], sigs)
     hbits = pairing_torch._h_eff_bits(CARD)
     consts = pairing_torch._fold_consts(CARD)
-    lane_bytes = (36 + 72 + 72 + 8) * 4 * k + len(bls_cuda._H_EFF_BITS) \
+    lane_bytes = (36 + 72 + 72 + 8) * 4 * k + 48 * 4 \
         + (24 + 48 + 1) * 4 * (k + 1)
     times["bls381_fold"] = (
-        graph_ms(lambda: bls381_cuda.fold_lanes(*inputs, hbits, consts), 3),
+        graph_ms(lambda: bls381_cuda.fold_lanes(*inputs, consts), 3),
         cuda_ms(lambda: pairing_torch._fold_lanes_plain(
             *inputs, hbits, consts), 1, warmup=0),
         *op_bound(fold_products(k, n_sets, inputs[1].cpu().numpy()),
                   lane_bytes, n_sms, max_mhz))
+    hq = bls381_cuda._words(torch.stack(inputs[2], dim=1))
+    psi = fq.to_words(curve_torch.psi_consts(CARD)).contiguous()
+    h_xy = torch.empty((k, 2, 2, fq.WORDS), dtype=torch.int32, device=CARD)
+    h_inf = torch.empty(k, dtype=torch.uint8, device=CARD)
+    kernels = cuda_build.build()
+    leg_ms = graph_ms(lambda: kernels.clear_cofactor(hq, psi, h_xy, h_inf,
+                                                     k), 3)
     chain_ms = graph_ms(
         lambda: pairing_torch.fold_partial_products(*inputs), 3)
     verdict_ms = graph_ms(lambda: bls381_cuda.product_final(
@@ -2401,6 +2425,8 @@ def flush_kernels_phase(n_sms, max_mhz):
               f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
               f"ms by {bound_by}; no PyTorch call computes it, so no "
               f"library time")
+    print(f"bls381_fold's longest leg alone, the cofactor kernel on the "
+          f"flush's {k} hash points: {leg_ms:.6f} ms from a CUDA graph")
     print(f"the block's one-launch fold (14 sets, 16 lanes): the fold's "
           f"lanes, sum and tail, the Miller loops and their product "
           f"{chain_ms:.6f} ms, with the final exponentiation "
@@ -2486,7 +2512,8 @@ def flush_phase():
             check(legs == want_legs,
                   f"flush {n} {variant}: {legs} legs, expected {want_legs}")
             if variant == "one-launch fold":
-                check(launches["fold_lanes"] == 2
+                check(launches["fold_lanes"] == bls381_cuda.FOLD_LAUNCHES
+                      and launches["clear_cofactor_g2"] >= 1
                       and launches["segment_sum"] >= 2
                       and launches["g1_ladder"] == 0,
                       f"flush {n} {variant}: launches {launches}")
@@ -2549,10 +2576,6 @@ KZG_CONSTANT_COMMITMENT = (
     "4a447642981306118df2244de29566320a8fb4b727021f89")
 MSM_SIZES = (256, 300, 1024, 4096)  # 256: the edge rows; 300: padded
 MSM_TIMED = 4096                # a blob's commitment or proof
-# the Pippenger kernel's fixed adds a window besides the fold: the merge
-# rounds' 15 * 255 and the two scans' 2 * sum_r (255 - 2^r)
-PIPPENGER_MERGE_ADDS = 15 * 255
-PIPPENGER_SCAN_ADDS = 2 * sum(255 - (1 << r) for r in range(8))
 _KZG = {}
 
 
@@ -2580,62 +2603,102 @@ def kzg_blobs(width):
     return out
 
 
-def _msm_case(n):
+def _msm_case(n, equal=False):
     """n points of the ceremony's Lagrange basis (the blob path's bases)
     and seeded scalars below r; at 256 the reference test's edge rows
     (scalars 0, 1, r - 1, the lowest window alone, the highest window
-    alone, an infinity point)."""
+    alone, an infinity point); with `equal` every scalar the same seeded
+    one (a constant blob's commitment: each window's points in one
+    bucket)."""
     pts = list(kzg_engine().g1_lagrange_brp()[:n])
     raw = np.random.default_rng([SEED, 21, n]).integers(
         0, 256, size=(n, 32), dtype=np.uint8)
     scalars = [int.from_bytes(row.tobytes(), "big") % R for row in raw]
-    if n == 256:
+    if equal:
+        scalars = [scalars[0]] * n
+    elif n == 256:
         scalars[:5] = [0, 1, R - 1, 255, 1 << 248]
         pts[5] = cv.g1_infinity()
     return pts, scalars
 
 
+def _g1_affine(point):
+    """A Jacobian G1 point (X, Y, Z), each [32], on the card -> its affine
+    limbs [2, 32] (zeros at infinity) and compressed bytes."""
+    X, Y, Z = (c[None] for c in point)
+    zero = torch.zeros_like(X[0])
+    x, y, _inf = pairing_torch._g1_jacobian_to_affine((X, Y, Z), zero, zero)
+    return (torch.cat([x, y]),
+            cv.g1_to_bytes(curve_torch.g1_unpack(tuple(
+                c.cpu() for c in (X, Y, Z)))[0]))
+
+
+def pippenger_work(digits, n_chunk):
+    """What the Pippenger kernel computes over `digits` (numpy [32, n]),
+    in point adds and doublings: (nonzero digits, work items, non-empty
+    buckets, adds, doublings).  A work item's first point is a load; its
+    other points are adds (mixed where Z = 1), a bucket's items a tree of
+    items - 1 adds, each bit tree 127 adds, each window's combination 7
+    doublings and 7 adds, Horner 31 x 8 doublings and 31 adds."""
+    counts = np.stack([np.bincount(row, minlength=256)[1:]
+                       for row in digits.astype(np.int64)])
+    nonzero = int(counts.sum())
+    items = int((-(-counts // n_chunk)).sum())
+    buckets = int((counts > 0).sum())
+    n_win = digits.shape[0]
+    adds = (nonzero - items) + (items - buckets) + n_win * 8 * 127 \
+        + n_win * 7 + (n_win - 1)
+    doublings = n_win * 7 + (n_win - 1) * 8
+    return nonzero, items, buckets, adds, doublings
+
+
 @phase("msm kernel")
 def msm_kernel_phase(n_sms, max_mhz):
-    """The Pippenger kernel (csrc/bls381_pippenger.cu, three launches)
-    against its plain torch version (ops/msm.py `_pippenger_g1`) on the
-    card, Jacobian words bit for bit, at 256 (edge rows), 300 (padded to
-    512), 1,024 and 4,096 points of the ceremony basis; at 256 and 300
-    also against the host oracle crypto/curve.msm; at each size the kernel
-    and the lanes engine on the same padded points (K2 at 256 bits, then
-    K1) from a CUDA graph, to weigh `g1_multi_exp`'s size threshold.  Then
-    at 4,096 points: each of the kernel's launches and the plain version,
-    beside the operation bound."""
+    """The Pippenger kernel (csrc/bls381_pippenger.cu, five launches)
+    against its plain torch version (ops/msm.py `_pippenger_g1`) and the
+    host oracle crypto/curve.msm on the card: the result's affine words
+    and compressed bytes (its Jacobian words follow its own order of
+    additions) at 256 (edge rows: scalars 0, 1, r - 1, single windows, an
+    infinity point), 300, 1,024 and 4,096 points of the ceremony basis,
+    and at 4,096 points with every scalar equal (the kernel on the n
+    points, the plain version on them padded with infinity to a power of
+    two); at each size the kernel and the lanes engine on the padded
+    points (K2 at 256 bits, then K1) from a CUDA graph, to weigh `g1_multi_exp`'s size
+    threshold.  Then at 4,096 points: each of the kernel's launches and
+    the plain version, beside the operation bound."""
     from consensus_specs_tpu_torch.ops import msm
     max_err = 0
     t0 = time.perf_counter()
     kzg_engine()
-    for n in MSM_SIZES:
-        pts, scalars = _msm_case(n)
+    for n, equal in [(n, False) for n in MSM_SIZES] + [(MSM_TIMED, True)]:
+        pts, scalars = _msm_case(n, equal)
         pt, digits = msm._pippenger_inputs(pts, scalars, CARD)
-        got = bls381_cuda.pippenger_g1(pt, digits)
-        want = msm._pippenger_g1(*pt, digits)
-        torch.cuda.synchronize()
+        # the plain version and the lanes engine take the points padded
+        ppt, pdigits = msm._pippenger_inputs(pts, scalars, CARD,
+                                             threads=msm._THREADS)
+        got, got_bytes = _g1_affine(bls381_cuda.pippenger_g1(pt, digits))
+        want, want_bytes = _g1_affine(msm._pippenger_g1(*ppt, pdigits))
+        oracle = cv.g1_to_bytes(cv.msm(pts, scalars))
         err = _max_err(got, want)
         max_err = max(max_err, err)
-        check(err == 0, f"pippenger_g1 != plain at {n} points ({err})")
-        oracle = ""
-        if n in (256, 300):
-            point = curve_torch.g1_unpack(tuple(c.cpu()[None] for c in got))
-            check(cv.g1_to_bytes(point[0])
-                  == cv.g1_to_bytes(cv.msm(pts, scalars)),
-                  f"pippenger_g1 at {n} points != crypto/curve.msm")
-            oracle = " == crypto/curve.msm,"
-        m = pt[0].shape[0]
-        bits = curve_torch.scalars_to_bits(scalars + [0] * (m - n), 256,
-                                           CARD)
-        engine_ms = (
-            graph_ms(lambda: bls381_cuda.pippenger_g1(pt, digits), 3),
-            graph_ms(lambda: bls381_cuda.segment_sum(tuple(
-                c[None] for c in bls381_cuda.g1_ladder(pt, bits))), 3))
-        print(f"bls381_pippenger: {n} points (padded to {m}) == plain bit "
-              f"for bit,{oracle} kernel {engine_ms[0]:.6f} ms, lanes "
-              f"engine {engine_ms[1]:.6f} ms from a CUDA graph "
+        label = f"{n} points{' (equal scalars)' if equal else ''}"
+        check(err == 0 and got_bytes == want_bytes,
+              f"pippenger_g1 at {label}: affine != plain ({err})")
+        check(got_bytes == oracle,
+              f"pippenger_g1 at {label} != crypto/curve.msm")
+        m = ppt[0].shape[0]
+        kernel_ms = graph_ms(lambda: bls381_cuda.pippenger_g1(pt, digits), 3)
+        lanes = ""
+        if not equal:
+            bits = curve_torch.scalars_to_bits(scalars + [0] * (m - n), 256,
+                                               CARD)
+            lanes_ms = graph_ms(lambda: bls381_cuda.segment_sum(tuple(
+                c[None] for c in bls381_cuda.g1_ladder(ppt, bits))), 3)
+            lanes = f", lanes engine {lanes_ms:.6f} ms"
+        print(f"bls381_pippenger: {label} == plain (affine words, "
+              f"compressed bytes; the plain version and the lanes engine on "
+              f"the points padded to {m}) == crypto/curve.msm, kernel "
+              f"{kernel_ms:.6f} ms{lanes} from a CUDA graph "
               f"({time.perf_counter() - t0:.6f} s into the phase)",
               flush=True)
 
@@ -2646,57 +2709,65 @@ def msm_kernel_phase(n_sms, max_mhz):
     kernels = cuda_build.build()
     words = fq.to_words(torch.stack(pt, dim=1)).contiguous()
     d8 = digits.to(torch.uint8).contiguous()
-    n_win = bls381_cuda.PIPPENGER_WINDOWS
-    tables = torch.empty((n_win, bls381_cuda.PIPPENGER_LANES, 256, 3,
-                          fq.WORDS), dtype=torch.int32, device=CARD)
-    scan = torch.empty((n_win, 2, 255, 3, fq.WORDS), dtype=torch.int32,
-                       device=CARD)
-    G = torch.empty((n_win, 3, fq.WORDS), dtype=torch.int32, device=CARD)
-    out = torch.empty((3, fq.WORDS), dtype=torch.int32, device=CARD)
-    fold_ms = graph_ms(lambda: kernels.pippenger_fold(words, d8, n, tables),
-                       3)
-    window_ms = graph_ms(lambda: kernels.pippenger_window(tables, scan, G),
-                         3)
-    horner_ms = graph_ms(lambda: kernels.pippenger_horner(G, out), 3)
+    scratch = bls381_cuda.pippenger_scratch(n, CARD)
+    kernels.pippenger(words, d8, n, *scratch.values(), 0)
+    stage_ms = [graph_ms(lambda: kernels.pippenger(
+        words, d8, n, *scratch.values(), stage), 3) for stage in range(1, 6)]
     bits = curve_torch.scalars_to_bits(scalars, 256, CARD)
 
     def lanes():
         return bls381_cuda.segment_sum(tuple(
             c[None] for c in bls381_cuda.g1_ladder(pt, bits)))
     lanes_pt = curve_torch.g1_unpack(tuple(c.cpu() for c in lanes()))[0]
-    pip_pt = curve_torch.g1_unpack(tuple(
-        c.cpu()[None] for c in bls381_cuda.pippenger_g1(pt, digits)))[0]
-    check(cv.g1_to_bytes(lanes_pt) == cv.g1_to_bytes(pip_pt),
+    _pip, pip_bytes = _g1_affine(bls381_cuda.pippenger_g1(pt, digits))
+    check(cv.g1_to_bytes(lanes_pt) == pip_bytes,
           f"the lanes engine and the Pippenger kernel differ at {n} points")
     lanes_ms = graph_ms(lanes, 3)
     plain_ms = cuda_ms(lambda: msm._pippenger_g1(*pt, digits), 1, warmup=0)
-    # what the function needs: an add a nonzero digit (this run's
-    # digits; a mixed add where the point is affine, Z = 1 in the packed
-    # input, as every ceremony basis point is), 2 * 255 general adds a
-    # window to weigh the buckets, Horner's 248 doublings (the first 8
-    # double infinity) and 32 adds
-    nonzero = int((digits != 0).sum())
+    # what the function needs over this run's digits: each non-empty
+    # bucket's points less one as adds (its first point is a load; an add
+    # is mixed where its point is affine, Z = 1 in the packed input, as
+    # every ceremony basis point is, and a projective point takes the load
+    # where there is one), 2 * 254 general adds a window for the running
+    # sums that weigh the buckets, Horner's 248 doublings (the first 8
+    # double infinity) and 31 adds
+    d_np = digits.cpu().numpy()
+    nonzero, items, buckets, adds, doublings = pippenger_work(
+        d_np, bls381_cuda.PIPPENGER_CHUNK)
     affine = (pt[2] == torch.from_numpy(fq.ONE_MONT_LIMBS).to(
-        pt[2])).all(dim=-1)
-    mixed = int(((digits != 0) & affine[None, :]).sum())
+        pt[2])).all(dim=-1).cpu().numpy().astype(np.float64)
+    mixed = 0
+    for row in d_np.astype(np.int64):
+        in_bucket = np.bincount(row, minlength=256)[1:]
+        affine_in = np.bincount(row, weights=affine, minlength=256)[1:]
+        mixed += int(np.minimum(affine_in,
+                                np.maximum(in_bucket - 1, 0)).sum())
+    bucket_adds = nonzero - buckets
     needed = mixed * G1_MIXED_ADD_PRODUCTS \
-        + (nonzero - mixed + 32 * 2 * 255 + 32) * G1_ADD_PRODUCTS \
+        + (bucket_adds - mixed + 32 * 2 * 254 + 31) * G1_ADD_PRODUCTS \
         + 248 * G1_DOUBLE_PRODUCTS
-    computed = (nonzero + 32 * (PIPPENGER_MERGE_ADDS + PIPPENGER_SCAN_ADDS)
-                + 32) * G1_ADD_PRODUCTS + 256 * G1_DOUBLE_PRODUCTS
+    # the kernel's: its chunk adds mixed (every basis point has Z = 1),
+    # the trees' and Horner's general
+    computed = (nonzero - items) * G1_MIXED_ADD_PRODUCTS \
+        + (adds - (nonzero - items)) * G1_ADD_PRODUCTS \
+        + doublings * G1_DOUBLE_PRODUCTS
     n_bytes = n * (36 * 4 + 32) + 36 * 4
     bound_ms, bound_by = op_bound(needed, n_bytes, n_sms, max_mhz)
     computed_ms, _ = op_bound(computed, n_bytes, n_sms, max_mhz)
+    names = ("bucket", "sums", "tree", "bits", "Horner")
     print(f"bls381_pippenger at {n} points: {kernel_ms:.6f} ms from a CUDA "
-          f"graph (fold {fold_ms:.6f} ms, window {window_ms:.6f} ms, Horner "
-          f"{horner_ms:.6f} ms), plain torch {plain_ms:.6f} ms; the lanes "
-          f"engine on the same points (K2 at 256 bits, then K1; == the "
-          f"kernel's point) {lanes_ms:.6f} ms; bound {bound_ms:.6f} ms by "
-          f"{bound_by} ({needed} Fq products: {nonzero} fold adds, "
-          f"{mixed} of them mixed, {32 * 2 * 255} bucket adds, Horner), "
-          f"the kernel computes "
-          f"{computed} ({computed_ms:.6f} ms at the same rate); no PyTorch "
-          f"call computes an MSM, so no library time")
+          f"graph ({', '.join(f'{a} {b:.6f} ms' for a, b in zip(names, stage_ms))}"
+          f"), plain torch {plain_ms:.6f} ms; the lanes engine on the same "
+          f"points (K2 at 256 bits, then K1; == the kernel's point) "
+          f"{lanes_ms:.6f} ms; bound {bound_ms:.6f} ms by {bound_by} "
+          f"({needed} Fq products: {bucket_adds} bucket adds, {mixed} of "
+          f"them mixed, for {nonzero} nonzero digits in {buckets} non-empty "
+          f"buckets, {32 * 2 * 254} running-sum adds, Horner's 248 "
+          f"doublings and 31 adds); the kernel computes "
+          f"{computed} ({computed_ms:.6f} ms at the same rate; {items} work "
+          f"items of at most {bls381_cuda.PIPPENGER_CHUNK} points over "
+          f"{buckets} non-empty buckets); no PyTorch call computes an MSM, "
+          f"so no library time")
     times = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, lanes_ms=lanes_ms)
     return max_err, times
@@ -2728,9 +2799,7 @@ class KzgRecorder(HostClock):
         self._wrap("host pairings", pairing, "pairing_check")
         self._wrap("batch lincombs", sig_fold, "fold_kzg_lincombs")
         launchers = cuda_build.build()
-        for name in ("pippenger_fold", "pippenger_window",
-                     "pippenger_horner"):
-            self._wrap("card: Pippenger", launchers, name, sync=True)
+        self._wrap("card: Pippenger", launchers, "pippenger", sync=True)
         for name in ("g1_ladder", "segment_sum"):
             self._wrap("card: lanes engine", launchers, name, sync=True)
 

@@ -16,7 +16,9 @@ the port's other kernels (ops/cuda_build.py):
 - csrc/bls381_msm.cu, the segment sums of G1 or G2 points (`segment_sum`,
   K1) and the G1 ladder (`g1_ladder`, K2);
 - csrc/bls381_fold.cu, the lanes and the last pair of a folded signature
-  flush (`fold_lanes`, K4, with a K1 launch between its two launches);
+  flush (`fold_lanes`, K4: a set's three legs as kernels of their own on
+  three streams, its cofactor by bls381_cofactor.cu's kernel; a K1 launch
+  sums the signature leg; bodies csrc/bls381_fold.cuh);
 - csrc/bls381_cofactor.cu, G2 cofactor clearing by the psi endomorphism
   with the affine result (`clear_cofactor_g2`, a thread a point);
 - csrc/bls381_check.cu, the pairing check in one launch, four warps a job
@@ -24,8 +26,9 @@ the port's other kernels (ops/cuda_build.py):
   the pairing kernel's two launches on the check-by-check path; the older
   kernels stay for the signature flush and the staged multi-exponentiation;
 - csrc/bls381_pippenger.cu, the windowed Pippenger G1 MSM of the KZG
-  engine in three launches (`pippenger_g1`; device bodies
-  csrc/bls381_pippenger.cuh on bls381.cuh).
+  engine in five launches (`pippenger_g1`; device bodies
+  csrc/bls381_pippenger.cuh on bls381.cuh), held to the plain version's
+  affine result.
 
 Each wrapper takes and returns the plain version's limb layout (int64
 [..., 32] 12-bit limbs, ops/fq.py) and repacks to the kernels' 12 x 32-bit
@@ -258,21 +261,26 @@ segment_sum.launches = 0
 segment_sum.plain_calls = 0
 
 
-def fold_lanes(aggP, cbits, hP, sP, hbits, consts):
+def fold_lanes(aggP, cbits, hP, sP, consts):
     """K4: the Miller inputs of a folded flush's k + 1 pairs.  aggP (X, Y,
     Z) [k, 32] G1 aggregates; cbits [k, nc] msb-first 0/1 coefficient
     bits; hP and sP (X, Y, Z) [k, 2, 32], the pre-cofactor hash points and
-    the signatures; hbits [nh] the cofactor ladder's bits; consts the limbs
-    of (g1x, g1y, g2x, g2y, n1x, n1y) (pairing_torch._fold_consts); k a
-    power of two.  Returns (xp [k + 1, 32], yp, xq [k + 1, 2, 32], yq, skip
-    bool [k + 1]): pair i < k is (c_i agg_i, h_eff Q_i), the last
-    (-G1, sum_i c_i sig_i), affine, skipped where a side is infinity.
+    the signatures; consts the limbs of (g1x, g1y, g2x, g2y, n1x, n1y)
+    (pairing_torch._fold_consts); k a power of two.  Returns (xp [k + 1,
+    32], yp, xq [k + 1, 2, 32], yq, skip bool [k + 1]): pair i < k is
+    (c_i agg_i, h_eff Q_i), the last (-G1, sum_i c_i sig_i), affine,
+    skipped where a side is infinity.
 
-    On CUDA tensors: launch 1 (a thread a lane: its three ladders and two
-    affine conversions), K1 over the lanes' c_i sig_i (counted in
-    `segment_sum.launches`), launch 3 (the last pair); two launches of
-    this wrapper's count a flush.  On CPU tensors the plain version
-    (pairing_torch._fold_lanes_plain)."""
+    On CUDA tensors, a set's three legs as kernels of their own on three
+    streams, forked from the caller's and joined back to it: the cofactor
+    leg, h_eff Q by the psi method (csrc/bls381_cofactor.cu, counted in
+    `clear_cofactor_g2.launches`) and its generator at infinity; the
+    weighting leg, c_i agg_i affine; and on the caller's stream the
+    signature leg c_i sig_i, K1 over it (counted in
+    `segment_sum.launches`) and the last pair.  FOLD_LAUNCHES of this
+    wrapper's count a flush.  On CPU tensors the plain version
+    (pairing_torch._fold_lanes_plain, whose cofactor is the ladder over
+    h_eff's bits)."""
     X = aggP[0]
     k = X.shape[0]
     for name, t in zip("XYZ", aggP):
@@ -287,39 +295,66 @@ def fold_lanes(aggP, cbits, hP, sP, hbits, consts):
             if t.shape != (k, 2, 32):
                 raise ValueError(f"fold_lanes: expected {label} [{k}, 2, "
                                  f"32], got {tuple(t.shape)}")
-    if cbits.dim() != 2 or cbits.shape[0] != k or hbits.dim() != 1 \
-            or cbits.device != X.device or hbits.device != X.device:
-        raise ValueError(f"fold_lanes: expected cbits [{k}, nc] and hbits "
-                         f"[nh] on {X.device}")
+    if cbits.dim() != 2 or cbits.shape[0] != k or cbits.device != X.device:
+        raise ValueError(f"fold_lanes: expected cbits [{k}, nc] on "
+                         f"{X.device}")
     if k < 1 or k & (k - 1):
         raise ValueError(f"fold_lanes: {k} lanes is not a power of two")
     if X.device.type == "cpu":
         fold_lanes.plain_calls += 1
-        return pairing_torch._fold_lanes_plain(aggP, cbits, hP, sP, hbits,
-                                               consts)
+        return pairing_torch._fold_lanes_plain(
+            aggP, cbits, hP, sP, pairing_torch._h_eff_bits(X.device), consts)
     kernels = cuda_build.build()
     dev = X.device
     agg = _words(torch.stack(aggP, dim=1))            # [k, 3, 12]
     hq = _words(torch.stack(hP, dim=1))               # [k, 3, 2, 12]
     sig = _words(torch.stack(sP, dim=1))
     cb = cbits.to(torch.uint8).contiguous()
-    hb = hbits.to(torch.uint8).contiguous()
+    nc = cb.shape[1]
+    psi = _words(curve_torch.psi_consts(dev))         # [2, 2, 12]
     cw = torch.cat([fq.to_words(c).reshape(-1) for c in consts]).contiguous()
     g1 = torch.empty((k + 1, 2, fq.WORDS), dtype=torch.int32, device=dev)
     g2 = torch.empty((k + 1, 2, 2, fq.WORDS), dtype=torch.int32, device=dev)
-    skip = torch.empty(k + 1, dtype=torch.uint8, device=dev)
+    skip = torch.zeros(k + 1, dtype=torch.uint8, device=dev)
+    h_inf = torch.empty(k, dtype=torch.uint8, device=dev)
     sw = torch.empty((1, k, 3, 2, fq.WORDS), dtype=torch.int32, device=dev)
     S = torch.empty((1, 3, 2, fq.WORDS), dtype=torch.int32, device=dev)
-    kernels.fold_lanes(agg, cb, cb.shape[1], hq, sig, hb, hb.shape[0], cw,
-                       g1, g2, skip, sw, k)
+    main = torch.cuda.current_stream(dev)
+    legs = _fold_streams(dev)
+    for s in legs:
+        s.wait_stream(main)
+    with torch.cuda.stream(legs[0]):
+        kernels.clear_cofactor(hq, psi, g2[:k], h_inf, k)
+        clear_cofactor_g2.launches += 1
+        kernels.fold_h(h_inf, cw, g2, skip, k)
+        fold_lanes.launches += 1
+    with torch.cuda.stream(legs[1]):
+        kernels.fold_w(agg, cb, nc, cw, g1, skip, k)
+        fold_lanes.launches += 1
+    kernels.fold_sw(sig, cb, nc, sw, k)
     fold_lanes.launches += 1
     _segment_sum_words(True, sw, k, S, 1)
     kernels.fold_tail(S, cw, g1, g2, skip, k)
     fold_lanes.launches += 1
+    for s in legs:
+        main.wait_stream(s)
     p, q = fq.from_words(g1), fq.from_words(g2)
     return p[:, 0], p[:, 1], q[:, 0], q[:, 1], skip.to(torch.bool)
 
 
+_FOLD_STREAMS = {}
+
+
+def _fold_streams(device):
+    """The two side streams of `fold_lanes` on `device` (the cofactor leg's
+    and the weighting leg's), made at the first call there."""
+    if device not in _FOLD_STREAMS:
+        _FOLD_STREAMS[device] = (torch.cuda.Stream(device),
+                                 torch.cuda.Stream(device))
+    return _FOLD_STREAMS[device]
+
+
+FOLD_LAUNCHES = 4               # fold_lanes' own launches a flush
 fold_lanes.launches = 0
 fold_lanes.plain_calls = 0
 
@@ -461,18 +496,38 @@ pairing_check.launches = 0
 pairing_check.plain_calls = 0
 
 
+def pippenger_scratch(n, device):
+    """The Pippenger kernel's scratch for n points on `device`, by the
+    names of its C entry (csrc/bls381_pippenger.cu; layouts
+    csrc/bls381_pippenger.cuh): idx, bstart, istart, item_bucket (int32),
+    partial, B, tbuf, T, G (points of 3 x 12 words) and out."""
+    w, words = PIPPENGER_WINDOWS, fq.WORDS
+    m = 255 + -(-n // PIPPENGER_CHUNK)       # item slots a window
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=device)
+    return dict(idx=i32(w, n), bstart=i32(w, 257), istart=i32(w, 257),
+                item_bucket=i32(w, m), partial=i32(w, m, 3, words),
+                B=i32(w, 256, 3, words), tbuf=i32(w, 8, 64, 3, words),
+                T=i32(w, 8, 3, words), G=i32(w, 3, words),
+                out=i32(3, words))
+
+
 def pippenger_g1(pt, digits):
     """sum_i s_i P_i over G1 by the windowed Pippenger method at the
-    reference's parameters (8-bit windows, 16 bucket-table lanes): pt =
-    (X, Y, Z), each [n, 32] int64 Jacobian Montgomery limbs, n a multiple
-    of 16; digits [32, n] (any integer dtype, values below 256), window 0
-    most significant (ops/msm.py `_digits_np`).  Returns one Jacobian point
-    (X, Y, Z), each [32], equal to the plain version's bit for bit.
+    reference's 8-bit windows: pt = (X, Y, Z), each [n, 32] int64
+    Jacobian Montgomery limbs, n >= 1; digits [32, n] (any integer dtype,
+    values below 256), window 0 most significant (ops/msm.py
+    `_digits_np`).  Returns one Jacobian point (X, Y, Z), each [32], whose
+    affine coordinates equal the plain version's; its Jacobian words
+    depend on the order of additions, which differs.
 
-    On CUDA tensors the three launches of csrc/bls381_pippenger.cu (the
-    fold, the windows' merge and scans, Horner), each counted; the bucket
-    tables (18.9 MB at any n) and scan buffers are scratch allocated here.
-    On CPU tensors the plain version (ops/msm.py `_pippenger_g1`)."""
+    On CUDA tensors the five launches of csrc/bls381_pippenger.cu
+    (bucketing, chunk sums, bucket trees, bit trees, Horner), each
+    counted, on scratch allocated here (`pippenger_scratch`).  On CPU
+    tensors the plain version (ops/msm.py `_pippenger_g1`), the points
+    padded with infinity (digit 0) to a multiple of its PIPPENGER_LANES
+    bucket-table lanes."""
     X = pt[0]
     for name, t in zip("XYZ", pt):
         _check(f"pippenger_g1 {name}", t, (32,), torch.int64, X.device)
@@ -480,9 +535,8 @@ def pippenger_g1(pt, digits):
             raise ValueError(f"pippenger_g1: expected [n, 32] coordinates, "
                              f"got {tuple(t.shape)}")
     n = X.shape[0]
-    if n % PIPPENGER_LANES:
-        raise ValueError(f"pippenger_g1: {n} points is not a multiple of "
-                         f"{PIPPENGER_LANES}")
+    if n < 1:
+        raise ValueError("pippenger_g1: no points")
     if digits.shape != (PIPPENGER_WINDOWS, n) or digits.device != X.device:
         raise ValueError(f"pippenger_g1: expected digits "
                          f"[{PIPPENGER_WINDOWS}, {n}] on {X.device}, got "
@@ -490,29 +544,28 @@ def pippenger_g1(pt, digits):
     if X.device.type == "cpu":
         pippenger_g1.plain_calls += 1
         from . import msm
+        pad = -n % PIPPENGER_LANES
+        if pad:
+            inf = curve_torch.point_infinity_like(
+                F1, tuple(c[:1] for c in pt))
+            pt = tuple(torch.cat([c, i.expand(pad, -1)])
+                       for c, i in zip(pt, inf))
+            digits = torch.cat(
+                [digits, digits.new_zeros((PIPPENGER_WINDOWS, pad))], dim=1)
         return msm._pippenger_g1(*pt, digits)
     kernels = cuda_build.build()
-    dev = X.device
     words = _words(torch.stack(pt, dim=1))            # [n, 3, 12]
     d8 = digits.to(torch.uint8).contiguous()
-    tables = torch.empty((PIPPENGER_WINDOWS, PIPPENGER_LANES, 256, 3,
-                          fq.WORDS), dtype=torch.int32, device=dev)
-    scan = torch.empty((PIPPENGER_WINDOWS, 2, 255, 3, fq.WORDS),
-                       dtype=torch.int32, device=dev)
-    G = torch.empty((PIPPENGER_WINDOWS, 3, fq.WORDS), dtype=torch.int32,
-                    device=dev)
-    out = torch.empty((3, fq.WORDS), dtype=torch.int32, device=dev)
-    kernels.pippenger_fold(words, d8, n, tables)
-    pippenger_g1.launches += 1
-    kernels.pippenger_window(tables, scan, G)
-    pippenger_g1.launches += 1
-    kernels.pippenger_horner(G, out)
-    pippenger_g1.launches += 1
-    return tuple(fq.from_words(out).unbind(0))
+    scratch = pippenger_scratch(n, X.device)
+    kernels.pippenger(words, d8, n, *scratch.values(), 0)
+    pippenger_g1.launches += PIPPENGER_LAUNCHES
+    return tuple(fq.from_words(scratch["out"]).unbind(0))
 
 
-PIPPENGER_WINDOWS, PIPPENGER_LANES = 32, 16
-PIPPENGER_LAUNCHES = 3          # launches of one pippenger_g1 call
+PIPPENGER_WINDOWS = 32
+PIPPENGER_LANES = 16             # the plain version's lanes (ops/msm.py)
+PIPPENGER_CHUNK = 16            # csrc/bls381_pippenger.cu kChunk
+PIPPENGER_LAUNCHES = 5          # launches of one pippenger_g1 call
 pippenger_g1.launches = 0
 pippenger_g1.plain_calls = 0
 

@@ -830,38 +830,12 @@ BLS_FN void segment_step_elem(uint32_t* buf, int64_t i, int64_t h) {
 }
 
 // the fold's affine constants, in words: the G1 and G2 generators (the
-// substitutes at infinity) and -G1 (the base of the folded signature leg)
+// substitutes at infinity) and -G1 (the base of the folded signature leg);
+// the fold's legs are in bls381_fold.cuh
 enum FoldConst {
   FC_G1X = 0, FC_G1Y = 12, FC_G2X = 24, FC_G2Y = 48, FC_N1X = 72,
   FC_N1Y = 84, FC_WORDS = 96
 };
-
-// one lane of the folded flush (bls381_fold.cu launch 1): w = c agg (G1,
-// agg 36 words), H = h_eff Q (G2, hq 72 words, over the nh bits of hbits),
-// sw = c sig (G2, 72 words), c the lane's msb-first ncbits bits.  Writes
-// the lane's Miller inputs, g1 = affine w (24 words), g2 = affine H (48
-// words), skip = w or H at infinity (the generators stand in), and sw
-// (Jacobian) for the signature sum.
-BLS_FN void fold_lane_elem(const uint32_t* agg, const uint8_t* cbits,
-                           int64_t ncbits, const uint32_t* hq,
-                           const uint32_t* sig, const uint8_t* hbits,
-                           int64_t nh, const uint32_t* consts, uint32_t* g1,
-                           uint32_t* g2, uint8_t* skip, uint32_t* sw) {
-  const pt<fp> w = pt_ladder(bls_load<pt<fp>>(agg), cbits, ncbits);
-  const pt<fp2> H = pt_ladder(bls_load<pt<fp2>>(hq), hbits, nh);
-  bls_store(sw, pt_ladder(bls_load<pt<fp2>>(sig), cbits, ncbits));
-  fp xw, yw;
-  fp2 xh, yh;
-  const bool w_inf = pt_affine(w, bls_load<fp>(consts + FC_G1X),
-                               bls_load<fp>(consts + FC_G1Y), xw, yw);
-  const bool h_inf = pt_affine(H, bls_load<fp2>(consts + FC_G2X),
-                               bls_load<fp2>(consts + FC_G2Y), xh, yh);
-  bls_store(g1, xw);
-  bls_store(g1 + BLS_NW, yw);
-  bls_store(g2, xh);
-  bls_store(g2 + 2 * BLS_NW, yh);
-  *skip = (w_inf || h_inf) ? 1 : 0;
-}
 
 // the fold's last pair (launch 3): (-G1, affine S), S the signature sum
 // (72 words, Jacobian), skipped when S is infinity

@@ -36,12 +36,16 @@ extern "C" int bls381_segment_sum_launch(int g2, void* buf, int64_t len,
 extern "C" int bls381_g1_ladder_launch(const void* pts, const void* bits,
                                        int64_t nbits, void* out, int64_t n,
                                        void* stream);
-extern "C" int bls381_fold_lanes_launch(const void* agg, const void* cbits,
-                                        int64_t ncbits, const void* hq,
-                                        const void* sig, const void* hbits,
-                                        int64_t nh, const void* consts,
-                                        void* g1, void* g2, void* skip,
-                                        void* sw, int64_t k, void* stream);
+extern "C" int bls381_fold_w_launch(const void* agg, const void* cbits,
+                                    int64_t ncbits, const void* consts,
+                                    void* g1, void* skip, int64_t k,
+                                    void* stream);
+extern "C" int bls381_fold_sw_launch(const void* sig, const void* cbits,
+                                     int64_t ncbits, void* sw, int64_t k,
+                                     void* stream);
+extern "C" int bls381_fold_h_launch(const void* h_inf, const void* consts,
+                                    void* g2, void* skip, int64_t k,
+                                    void* stream);
 extern "C" int bls381_fold_tail_launch(const void* S, const void* consts,
                                        void* g1, void* g2, void* skip,
                                        int64_t k, void* stream);
@@ -53,13 +57,10 @@ extern "C" int bls381_pairing_check_launch(const void* g1, const void* g2,
                                            const void* skip, void* tq,
                                            void* prod, void* ok, int64_t k,
                                            int64_t b, void* stream);
-extern "C" int bls381_pippenger_fold_launch(const void* pts,
-                                            const void* digits, int64_t n,
-                                            void* tables, void* stream);
-extern "C" int bls381_pippenger_window_launch(void* tables, void* scan,
-                                              void* G, void* stream);
-extern "C" int bls381_pippenger_horner_launch(const void* G, void* out,
-                                              void* stream);
+extern "C" int bls381_pippenger_launch(
+    const void* pts, const void* digits, int64_t n, void* idx, void* bstart,
+    void* istart, void* item_bucket, void* partial, void* B, void* tbuf,
+    void* T, void* G, void* out, int stage, void* stream);
 
 // out[i] = SHA-256(chunks[2i] || chunks[2i + 1]), on the current stream.
 void sha256_pairs(const torch::Tensor& chunks, torch::Tensor out) {
@@ -157,23 +158,41 @@ void bls381_g1_ladder(const torch::Tensor& pts, const torch::Tensor& bits,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// K4 launch 1: the fold's k lanes (bls381_fold.cu).
-void bls381_fold_lanes(const torch::Tensor& agg, const torch::Tensor& cbits,
-                       int64_t ncbits, const torch::Tensor& hq,
-                       const torch::Tensor& sig, const torch::Tensor& hbits,
-                       int64_t nh, const torch::Tensor& consts,
-                       torch::Tensor g1, torch::Tensor g2, torch::Tensor skip,
-                       torch::Tensor sw, int64_t k) {
+// K4's weighting leg: w = c agg of k sets, affine (bls381_fold.cu); skip
+// must be zero before the legs.
+void bls381_fold_w(const torch::Tensor& agg, const torch::Tensor& cbits,
+                   int64_t ncbits, const torch::Tensor& consts,
+                   torch::Tensor g1, torch::Tensor skip, int64_t k) {
   const c10::cuda::CUDAGuard guard(agg.device());
-  const int rc = bls381_fold_lanes_launch(
-      agg.data_ptr(), cbits.data_ptr(), ncbits, hq.data_ptr(),
-      sig.data_ptr(), hbits.data_ptr(), nh, consts.data_ptr(), g1.data_ptr(),
-      g2.data_ptr(), skip.data_ptr(), sw.data_ptr(), k,
+  const int rc = bls381_fold_w_launch(
+      agg.data_ptr(), cbits.data_ptr(), ncbits, consts.data_ptr(),
+      g1.data_ptr(), skip.data_ptr(), k,
       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// K4 launch 3: the fold's last pair, at index k, from the sum S.
+// K4's signature leg: sw = c sig of k sets, Jacobian (bls381_fold.cu).
+void bls381_fold_sw(const torch::Tensor& sig, const torch::Tensor& cbits,
+                    int64_t ncbits, torch::Tensor sw, int64_t k) {
+  const c10::cuda::CUDAGuard guard(sig.device());
+  const int rc = bls381_fold_sw_launch(
+      sig.data_ptr(), cbits.data_ptr(), ncbits, sw.data_ptr(), k,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// K4's cofactor leg after bls381_cofactor.cu: the G2 generator and skip
+// where h_eff Q is infinity (bls381_fold.cu).
+void bls381_fold_h(const torch::Tensor& h_inf, const torch::Tensor& consts,
+                   torch::Tensor g2, torch::Tensor skip, int64_t k) {
+  const c10::cuda::CUDAGuard guard(h_inf.device());
+  const int rc = bls381_fold_h_launch(
+      h_inf.data_ptr(), consts.data_ptr(), g2.data_ptr(), skip.data_ptr(), k,
+      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
+}
+
+// K4's last pair, at index k, from the sum S.
 void bls381_fold_tail(const torch::Tensor& S, const torch::Tensor& consts,
                       torch::Tensor g1, torch::Tensor g2, torch::Tensor skip,
                       int64_t k) {
@@ -207,32 +226,21 @@ void bls381_pairing_check(const torch::Tensor& g1, const torch::Tensor& g2,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// The Pippenger G1 MSM's three launches (bls381_pippenger.cu): the fold of
-// n points by their digits into the bucket tables, each window's merge and
-// scans into G, Horner over G into out.
-void bls381_pippenger_fold(const torch::Tensor& pts,
-                           const torch::Tensor& digits, int64_t n,
-                           torch::Tensor tables) {
+// The Pippenger G1 MSM (bls381_pippenger.cu): launch `stage` (1-5) of
+// one MSM of n points, or all five in order (stage 0), into out.
+void bls381_pippenger(const torch::Tensor& pts, const torch::Tensor& digits,
+                      int64_t n, torch::Tensor idx, torch::Tensor bstart,
+                      torch::Tensor istart, torch::Tensor item_bucket,
+                      torch::Tensor partial, torch::Tensor B,
+                      torch::Tensor tbuf, torch::Tensor T, torch::Tensor G,
+                      torch::Tensor out, int64_t stage) {
   const c10::cuda::CUDAGuard guard(pts.device());
-  const int rc = bls381_pippenger_fold_launch(
-      pts.data_ptr(), digits.data_ptr(), n, tables.data_ptr(),
+  const int rc = bls381_pippenger_launch(
+      pts.data_ptr(), digits.data_ptr(), n, idx.data_ptr(),
+      bstart.data_ptr(), istart.data_ptr(), item_bucket.data_ptr(),
+      partial.data_ptr(), B.data_ptr(), tbuf.data_ptr(), T.data_ptr(),
+      G.data_ptr(), out.data_ptr(), static_cast<int>(stage),
       c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
-}
-
-void bls381_pippenger_window(torch::Tensor tables, torch::Tensor scan,
-                             torch::Tensor G) {
-  const c10::cuda::CUDAGuard guard(tables.device());
-  const int rc = bls381_pippenger_window_launch(
-      tables.data_ptr(), scan.data_ptr(), G.data_ptr(),
-      c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
-}
-
-void bls381_pippenger_horner(const torch::Tensor& G, torch::Tensor out) {
-  const c10::cuda::CUDAGuard guard(G.device());
-  const int rc = bls381_pippenger_horner_launch(
-      G.data_ptr(), out.data_ptr(), c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
@@ -251,18 +259,18 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bls381_segment_sum", &bls381_segment_sum,
         "halving sums of point segments, one block a segment");
   m.def("bls381_g1_ladder", &bls381_g1_ladder, "the G1 double-and-add ladder");
-  m.def("bls381_fold_lanes", &bls381_fold_lanes,
-        "the folded flush's lanes: weighting, cofactor and signature ladders");
+  m.def("bls381_fold_w", &bls381_fold_w,
+        "the folded flush's weighting leg, affine");
+  m.def("bls381_fold_sw", &bls381_fold_sw,
+        "the folded flush's signature leg, Jacobian");
+  m.def("bls381_fold_h", &bls381_fold_h,
+        "the folded flush's cofactor pairs at infinity");
   m.def("bls381_fold_tail", &bls381_fold_tail,
         "the folded flush's last pair (-G1, S)");
   m.def("bls381_clear_cofactor", &bls381_clear_cofactor,
         "G2 cofactor clearing by psi, affine");
   m.def("bls381_pairing_check", &bls381_pairing_check,
         "pairing checks, four warps a job");
-  m.def("bls381_pippenger_fold", &bls381_pippenger_fold,
-        "the Pippenger MSM's bucket fold, a thread a window and table lane");
-  m.def("bls381_pippenger_window", &bls381_pippenger_window,
-        "the Pippenger MSM's merge and suffix scans, a block a window");
-  m.def("bls381_pippenger_horner", &bls381_pippenger_horner,
-        "the Pippenger MSM's Horner pass over the windows");
+  m.def("bls381_pippenger", &bls381_pippenger,
+        "the Pippenger MSM: bucketing, chunk sums, trees and Horner");
 }

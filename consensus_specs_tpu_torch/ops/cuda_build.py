@@ -97,13 +97,12 @@ def _build_cpp_extension():
         pairs=ext.sha256_pairs, gather=ext.sha256_gather, epoch=epoch,
         field=field, ladder=ext.bls381_ladder, miller=ext.bls381_miller,
         final=ext.bls381_final, segment_sum=ext.bls381_segment_sum,
-        g1_ladder=ext.bls381_g1_ladder, fold_lanes=ext.bls381_fold_lanes,
+        g1_ladder=ext.bls381_g1_ladder, fold_w=ext.bls381_fold_w,
+        fold_sw=ext.bls381_fold_sw, fold_h=ext.bls381_fold_h,
         fold_tail=ext.bls381_fold_tail,
         clear_cofactor=ext.bls381_clear_cofactor,
         pairing_check=ext.bls381_pairing_check,
-        pippenger_fold=ext.bls381_pippenger_fold,
-        pippenger_window=ext.bls381_pippenger_window,
-        pippenger_horner=ext.bls381_pippenger_horner)
+        pippenger=ext.bls381_pippenger)
 
 
 def _nvcc(nvcc, args):
@@ -157,24 +156,23 @@ def _build_ctypes():
     segment_fn.argtypes = [ctypes.c_int, ptr, i64, ptr, i64, ptr]
     g1_ladder_fn = lib.bls381_g1_ladder_launch
     g1_ladder_fn.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
-    lanes_fn = lib.bls381_fold_lanes_launch
-    lanes_fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i64, ptr, ptr, ptr,
-                         ptr, ptr, i64, ptr]
+    fold_w_fn = lib.bls381_fold_w_launch
+    fold_w_fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i64, ptr]
+    fold_sw_fn = lib.bls381_fold_sw_launch
+    fold_sw_fn.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
+    fold_h_fn = lib.bls381_fold_h_launch
+    fold_h_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
     tail_fn = lib.bls381_fold_tail_launch
     tail_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, ptr]
     cofactor_fn = lib.bls381_clear_cofactor_launch
     cofactor_fn.argtypes = [ptr, ptr, ptr, ptr, i64, ptr]
     check_fn = lib.bls381_pairing_check_launch
     check_fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
-    pip_fold_fn = lib.bls381_pippenger_fold_launch
-    pip_fold_fn.argtypes = [ptr, ptr, i64, ptr, ptr]
-    pip_window_fn = lib.bls381_pippenger_window_launch
-    pip_window_fn.argtypes = [ptr, ptr, ptr, ptr]
-    pip_horner_fn = lib.bls381_pippenger_horner_launch
-    pip_horner_fn.argtypes = [ptr, ptr, ptr]
+    pip_fn = lib.bls381_pippenger_launch
+    pip_fn.argtypes = [ptr, ptr, i64, *[ptr] * 10, ctypes.c_int, ptr]
     for fn in (field_fn, ladder_fn, miller_fn, final_fn, segment_fn,
-               g1_ladder_fn, lanes_fn, tail_fn, cofactor_fn, check_fn,
-               pip_fold_fn, pip_window_fn, pip_horner_fn):
+               g1_ladder_fn, fold_w_fn, fold_sw_fn, fold_h_fn, tail_fn,
+               cofactor_fn, check_fn, pip_fn):
         fn.restype = ctypes.c_int
 
     def stream_of(t):
@@ -232,14 +230,23 @@ def _build_ctypes():
                 pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
                 stream_of(pts)))
 
-    def fold_lanes(agg, cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2,
-                   skip, sw, k):
+    def fold_w(agg, cbits, ncbits, consts, g1, skip, k):
         with torch.cuda.device(agg.device):
-            _check("bls381_fold (lanes)", lanes_fn(
-                agg.data_ptr(), cbits.data_ptr(), ncbits, hq.data_ptr(),
-                sig.data_ptr(), hbits.data_ptr(), nh, consts.data_ptr(),
-                g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), sw.data_ptr(),
-                k, stream_of(agg)))
+            _check("bls381_fold (weighting)", fold_w_fn(
+                agg.data_ptr(), cbits.data_ptr(), ncbits, consts.data_ptr(),
+                g1.data_ptr(), skip.data_ptr(), k, stream_of(agg)))
+
+    def fold_sw(sig, cbits, ncbits, sw, k):
+        with torch.cuda.device(sig.device):
+            _check("bls381_fold (signatures)", fold_sw_fn(
+                sig.data_ptr(), cbits.data_ptr(), ncbits, sw.data_ptr(), k,
+                stream_of(sig)))
+
+    def fold_h(h_inf, consts, g2, skip, k):
+        with torch.cuda.device(h_inf.device):
+            _check("bls381_fold (cofactor pairs)", fold_h_fn(
+                h_inf.data_ptr(), consts.data_ptr(), g2.data_ptr(),
+                skip.data_ptr(), k, stream_of(h_inf)))
 
     def fold_tail(S, consts, g1, g2, skip, k):
         with torch.cuda.device(S.device):
@@ -259,32 +266,23 @@ def _build_ctypes():
                 g1.data_ptr(), g2.data_ptr(), skip.data_ptr(), tq.data_ptr(),
                 prod.data_ptr(), ok.data_ptr(), k, b, stream_of(g1)))
 
-    def pippenger_fold(pts, digits, n, tables):
+    def pippenger(pts, digits, n, idx, bstart, istart, item_bucket,
+                  partial, B, tbuf, T, G, out, stage):
         with torch.cuda.device(pts.device):
-            _check("bls381_pippenger (fold)", pip_fold_fn(
-                pts.data_ptr(), digits.data_ptr(), n, tables.data_ptr(),
-                stream_of(pts)))
-
-    def pippenger_window(tables, scan, G):
-        with torch.cuda.device(tables.device):
-            _check("bls381_pippenger (window)", pip_window_fn(
-                tables.data_ptr(), scan.data_ptr(), G.data_ptr(),
-                stream_of(tables)))
-
-    def pippenger_horner(G, out):
-        with torch.cuda.device(G.device):
-            _check("bls381_pippenger (Horner)", pip_horner_fn(
-                G.data_ptr(), out.data_ptr(), stream_of(G)))
+            _check("bls381_pippenger", pip_fn(
+                pts.data_ptr(), digits.data_ptr(), n,
+                *(t.data_ptr() for t in (idx, bstart, istart, item_bucket,
+                                         partial, B, tbuf, T, G, out)),
+                stage, stream_of(pts)))
     return SimpleNamespace(pairs=pairs, gather=gather, epoch=epoch,
                            field=field, ladder=ladder, miller=miller,
                            final=final, segment_sum=segment_sum,
-                           g1_ladder=g1_ladder, fold_lanes=fold_lanes,
+                           g1_ladder=g1_ladder, fold_w=fold_w,
+                           fold_sw=fold_sw, fold_h=fold_h,
                            fold_tail=fold_tail,
                            clear_cofactor=clear_cofactor,
                            pairing_check=pairing_check,
-                           pippenger_fold=pippenger_fold,
-                           pippenger_window=pippenger_window,
-                           pippenger_horner=pippenger_horner)
+                           pippenger=pippenger)
 
 
 def build():
@@ -296,13 +294,14 @@ def build():
     `.field(op, a, b, out, n)` (b None for a unary op), `.ladder(pts,
     bits, nbits, out, n)`, `.miller(g1, g2, skip, f, n)` and `.final(f, k,
     do_final, prod, ok, b)`, `.segment_sum(g2, buf, length, out,
-    segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, `.fold_lanes(agg,
-    cbits, ncbits, hq, sig, hbits, nh, consts, g1, g2, skip, sw, k)`,
-    `.fold_tail(S, consts, g1, g2, skip, k)`, `.clear_cofactor(pts, consts,
+    segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, K4's `.fold_w(agg,
+    cbits, ncbits, consts, g1, skip, k)`, `.fold_sw(sig, cbits, ncbits,
+    sw, k)`, `.fold_h(h_inf, consts, g2, skip, k)` and `.fold_tail(S,
+    consts, g1, g2, skip, k)`, `.clear_cofactor(pts, consts,
     xy, inf, n)`, `.pairing_check(g1, g2, skip, tq, prod, ok, k, b)` and
-    the Pippenger MSM's `.pippenger_fold(pts, digits, n, tables)`,
-    `.pippenger_window(tables, scan, G)` and `.pippenger_horner(G, out)`
-    (bls381_cuda.py gives the layouts)."""
+    the Pippenger MSM's `.pippenger(pts, digits, n, idx, bstart, istart,
+    item_bucket, partial, B, tbuf, T, G, out, stage)` (stage 0 its five
+    launches, 1-5 one of them; bls381_cuda.py gives the layouts)."""
     global _kernels, build_route
     if _kernels is None:
         from torch.utils import cpp_extension

@@ -131,12 +131,14 @@ def _pippenger_g1(X, Y, Z, digits, *, w_bits: int = _W_BITS,
 
 
 def _pippenger_inputs(points, scalars, device, w_bits: int = _W_BITS,
-                      threads: int = _THREADS):
-    """The Pippenger engine's inputs: the points padded with infinity (and
-    the scalars with 0) to a power of two that is a multiple of `threads`,
-    packed on `device`, and their digits [256 // w_bits, m] (uint8)."""
+                      threads: int | None = None):
+    """The Pippenger engine's inputs: the points packed on `device` and
+    their digits [256 // w_bits, m] (uint8), m = n.  With `threads` (the
+    plain version's lanes) the points are padded with infinity (and the
+    scalars with 0) to a power of two that is a multiple of `threads`, as
+    the reference pads them."""
     n = len(points)
-    m = _pow2(-(-n // threads) * threads)
+    m = _pow2(-(-n // threads) * threads) if threads else n
     pts = list(points) + [cv.g1_infinity()] * (m - n)
     sc = [int(s) % R for s in scalars] + [0] * (m - n)
     digits = _digits_np(sc, w_bits).astype(np.uint8)
@@ -147,9 +149,8 @@ def _pippenger_inputs(points, scalars, device, w_bits: int = _W_BITS,
 def g1_multi_exp(points, scalars):
     """sum_i scalars[i] * points[i] over G1; returns an oracle Point.
 
-    On the card at n >= _PIPPENGER_MIN: the Pippenger MSM over the
-    points padded with infinity to a power of two (a multiple of
-    _THREADS), one `bls381_cuda.pippenger_g1` call.  Otherwise the lanes
+    On the card at n >= _PIPPENGER_MIN: the Pippenger MSM over the n
+    points as they are, one `bls381_cuda.pippenger_g1` call.  Otherwise the lanes
     engine: one G1 ladder over 256-bit rows, the points padded to a power
     of two, then one segment sum in the halving order of the reference's
     `_tree_sum_host`."""

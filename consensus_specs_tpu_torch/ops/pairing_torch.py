@@ -337,8 +337,8 @@ def pairing_check(xps, yps, xqs, yqs, skip=None):
 # the product of N + 1 Miller loops.  The reference fuses the cofactor
 # ladder, the weighting, the G2 sum, the affine conversion and the partial
 # Miller product into one XLA program; here the pairs come from
-# bls381_cuda.fold_lanes (csrc/bls381_fold.cu with a segment sum between
-# its launches) and go through the pairing kernel's two launches.
+# bls381_cuda.fold_lanes (csrc/bls381_fold.cu's legs, the cofactor kernel
+# and a segment sum) and go through the pairing kernel's two launches.
 
 _FOLD_CONSTS: dict = {}     # device -> the packed constants, once a device
 
@@ -436,13 +436,14 @@ def fold_partial_products(aggP, cbits, hP, sP):
     final exponentiation.  aggP (X, Y, Z) [k, 32] Jacobian aggregates;
     cbits [k, 64] msb-first coefficient bits; hP, sP (X, Y, Z) [k, 2, 32]
     Jacobian pre-cofactor hash points and signatures; k a power of two.
-    Four launches on the card (the fold's two, a segment sum between them,
-    the Miller loops) and the product launch without the final
-    exponentiation; the plain versions on CPU tensors."""
+    On the card the fold's launches (`bls381_cuda.fold_lanes`: its own
+    FOLD_LAUNCHES, the cofactor kernel and a segment sum), the Miller loops
+    and the product launch without the final exponentiation; the plain
+    versions on CPU tensors."""
     from . import bls381_cuda
     device = aggP[0].device
     xp, yp, xq, yq, skip = bls381_cuda.fold_lanes(
-        aggP, cbits, hP, sP, _h_eff_bits(device), _fold_consts(device))
+        aggP, cbits, hP, sP, _fold_consts(device))
     f = bls381_cuda.miller(xp, yp, xq, yq, skip)
     prod, _ = bls381_cuda.product_final(f[None], final=False)
     return prod[0]

@@ -8,8 +8,9 @@ exponentiation that `bls381_field.cu`, `bls381_g2.cu` and
 card.  This test builds a small shared library from it with the host's C++
 compiler, loops the kernels' per-element bodies (`field_op_elem`,
 `g2_ladder_elem`, `g1_ladder_elem`, `segment_step_elem` in the segment-sum
-kernel's rounds, `fold_lane_elem` and `fold_tail_elem` around a segment
-sum, `miller_elem`, `final_elem`) over seeded inputs, and holds every
+kernel's rounds, the fold's legs `fold_w_elem`, `cofactor_elem` then
+`fold_h_elem` and `fold_sw_elem` (`bls381_fold.cuh`) and `fold_tail_elem`
+around a segment sum, `miller_elem`, `final_elem`) over seeded inputs, and holds every
 output against the plain version (`bls381_cuda.FIELD_OPS`,
 `curve_torch.point_scalar_mul`, `bls381_cuda.halving_sum`,
 `pairing_torch._fold_lanes_plain`; the pairing launches in
@@ -17,16 +18,18 @@ tests/test_torch_pairing.py, on the Miller values its fixture computed) bit
 for bit, so the kernels' arithmetic is checked on every run of the tests,
 not only on the card.  The redesigned kernels' bodies come from
 `bls381_reg.cuh` and `bls381_check.cuh`, the same sources as
-`bls381_cofactor.cu` and `bls381_check.cu`: `cofactor_elem` a point, and
-`check_job`, whose warp levels run for lanes 0..31 in turn here (the
-portable product stands in for the PTX carry chains).  The Pippenger MSM's
-three launches come from `bls381_pippenger.cuh`, the source of
-`bls381_pippenger.cu`, instantiated at 4-bit windows and 4 lanes (held bit
-for bit against ops/msm.py `_pippenger_g1` at the same parameters) and at
-the kernel's 8-bit windows and 16 lanes (held against the host oracle
-`crypto/curve.msm`); the window launch runs with one thread, which walks
-every element of each round.  Without a C++ compiler on the host it skips
-with that reason.
+`bls381_cofactor.cu` and `bls381_check.cu`: `cofactor_elem` a point (also
+the fold's cofactor leg), and `check_job`, whose warp levels run for lanes
+0..31 in turn here (the portable product stands in for the PTX carry
+chains).  The Pippenger MSM's five launches come from
+`bls381_pippenger.cuh`, the source of `bls381_pippenger.cu`, instantiated
+at 4-bit windows and chunks of 4 points and at the kernel's 8-bit windows
+and chunks of 16; their result's compressed bytes are held against
+ops/msm.py `_pippenger_g1`'s and the host oracle `crypto/curve.msm`'s (the
+Jacobian words depend on the order of additions, which differs); the
+launches that spread a window over a block run with one thread, which
+walks every element of each round.  Without a C++ compiler on the host it
+skips with that reason.
 """
 import ctypes
 import math
@@ -52,6 +55,7 @@ N = 4
 
 HARNESS = r"""
 #include "bls381_check.cuh"
+#include "bls381_fold.cuh"
 #include "bls381_pippenger.cuh"
 #include <stdlib.h>
 extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
@@ -84,16 +88,25 @@ extern "C" void segment_sum(int g2, uint32_t* buf, int64_t len,
     for (int64_t j = 0; j < w; ++j) out[s * w + j] = seg[j];
   }
 }
-// the fold's launch 1, the segment sum of sw and launch 3
+// the fold's legs, each kernel's threads in turn (the cofactor leg is
+// bls381_cofactor.cu's body into g2's rows, then fold_h_elem), the segment
+// sum of sw and the tail; skip zero on entry
 extern "C" void fold(const uint32_t* agg, const uint8_t* cbits, int64_t nc,
                      const uint32_t* hq, const uint32_t* sig,
-                     const uint8_t* hbits, int64_t nh, const uint32_t* consts,
+                     const uint32_t* psi, const uint32_t* consts,
                      uint32_t* g1, uint32_t* g2, uint8_t* skip, uint32_t* sw,
                      int64_t k) {
+  uint8_t* h_inf = (uint8_t*)malloc(k);
   for (int64_t i = 0; i < k; ++i)
-    fold_lane_elem(agg + i * 36, cbits + i * nc, nc, hq + i * 72,
-                   sig + i * 72, hbits, nh, consts, g1 + i * 24, g2 + i * 48,
-                   skip + i, sw + i * 72);
+    cofactor_elem(hq + i * 72, psi, g2 + i * 48, h_inf + i);
+  for (int64_t i = 0; i < k; ++i)
+    fold_h_elem(h_inf[i], consts, g2 + i * 48, skip + i);
+  free(h_inf);
+  for (int64_t i = 0; i < k; ++i)
+    fold_w_elem(agg + i * 36, cbits + i * nc, nc, consts, g1 + i * 24,
+                skip + i);
+  for (int64_t i = 0; i < k; ++i)
+    fold_sw_elem(sig + i * 72, cbits + i * nc, nc, sw + i * 72);
   uint32_t S[72];
   segment_sum(1, sw, k, S, 1);
   fold_tail_elem(S, consts, g1 + k * 24, g2 + k * 48, skip + k);
@@ -138,25 +151,36 @@ extern "C" void check(const uint32_t* g1, const uint32_t* g2,
   }
   free(s);
 }
-// bls381_pippenger.cu's three launches: every lane's fold, each window's
-// merge and scans by one thread, Horner
-template <int WB, int T>
+// bls381_pippenger.cu's five launches, each window's (and bit's) blocks
+// by one thread, every item of the sums launch in turn
+template <int WB, int C>
 static void pip_run(const uint32_t* pts, const uint8_t* digits, int64_t n,
                     uint32_t* out) {
-  using S = pip_shape<WB, T>;
-  uint32_t* tables = (uint32_t*)malloc(
-      sizeof(uint32_t) * S::kWindows * T * S::kSlots * PIP_PW);
-  uint32_t* scan = (uint32_t*)malloc(
-      sizeof(uint32_t) * S::kWindows * 2 * S::kBuckets * PIP_PW);
-  uint32_t G[S::kWindows * PIP_PW];
-  for (int w = 0; w < S::kWindows; ++w)
-    for (int t = 0; t < T; ++t)
-      pip_fold_lane<WB, T>(pts, digits, n, tables, w, t);
-  for (int w = 0; w < S::kWindows; ++w)
-    pip_window<WB, T>(tables, scan, G, w, 0, 1);
-  pip_horner<WB, T>(G, out);
-  free(tables);
-  free(scan);
+  using S = pip_shape<WB, C>;
+  const int64_t m = S::items(n), W = S::kWindows;
+  int32_t* idx = (int32_t*)malloc(sizeof(int32_t) * W * n);
+  int32_t* bstart = (int32_t*)malloc(sizeof(int32_t) * W * (S::kSlots + 1));
+  int32_t* istart = (int32_t*)malloc(sizeof(int32_t) * W * (S::kSlots + 1));
+  int32_t* ib = (int32_t*)malloc(sizeof(int32_t) * W * m);
+  uint32_t* partial = (uint32_t*)malloc(sizeof(uint32_t) * W * m * PIP_PW);
+  uint32_t* B = (uint32_t*)malloc(sizeof(uint32_t) * W * S::kSlots * PIP_PW);
+  uint32_t* tbuf = (uint32_t*)malloc(
+      sizeof(uint32_t) * W * WB * (S::kLeaves / 2) * PIP_PW);
+  uint32_t* T = (uint32_t*)malloc(sizeof(uint32_t) * W * WB * PIP_PW);
+  uint32_t* G = (uint32_t*)malloc(sizeof(uint32_t) * W * PIP_PW);
+  int32_t sh[2 * (S::kSlots + 1)];
+  for (int w = 0; w < W; ++w)
+    pip_bucket<WB, C>(digits, n, idx, bstart, istart, ib, sh, w, 0, 1);
+  for (int w = 0; w < W; ++w)
+    for (int64_t j = 0; j < m; ++j)
+      pip_bucket_sum<WB, C>(pts, n, idx, bstart, istart, ib, partial, w, j);
+  for (int w = 0; w < W; ++w)
+    pip_bucket_tree<WB, C>(partial, n, istart, ib, B, w, 0, 1);
+  for (int w = 0; w < W; ++w)
+    for (int j = 0; j < WB; ++j) pip_bit_tree<WB, C>(B, tbuf, T, w, j, 0, 1);
+  pip_horner<WB, C>(T, G, out, 0, 1);
+  free(idx); free(bstart); free(istart); free(ib); free(partial); free(B);
+  free(tbuf); free(T); free(G);
 }
 extern "C" void pippenger(int small, const uint32_t* pts,
                           const uint8_t* digits, int64_t n, uint32_t* out) {
@@ -184,7 +208,7 @@ def host_lib(tmp_path_factory):
     lib.ladder.argtypes = [p, p, i64, p, i64]
     lib.g1_ladder.argtypes = [p, p, i64, p, i64]
     lib.segment_sum.argtypes = [ctypes.c_int, p, i64, p, i64]
-    lib.fold.argtypes = [p, p, i64, p, p, p, i64, p, p, p, p, p, i64]
+    lib.fold.argtypes = [p, p, i64, p, p, p, p, p, p, p, p, i64]
     lib.miller.argtypes = [p, p, p, p, i64]
     lib.final.argtypes = [p, i64, ctypes.c_int, p, p, i64]
     lib.reg_mul_inv.argtypes = [p, p, p, p, i64]
@@ -283,44 +307,53 @@ def test_segment_sum_equals_the_plain_version(host_lib, field):
 
 @pytest.mark.parametrize("case", ["valid lanes", "infinity sum"])
 def test_fold_lanes_equal_the_plain_version(host_lib, case):
-    """The fold's three launches (the segment sum between them) against
-    `_fold_lanes_plain`, over a 12-bit stand-in for h_eff (the kernel walks
-    whatever bits it is given): four lanes with an infinity aggregate, or
-    two lanes whose signatures are infinity (S at infinity, its pair
-    skipped)."""
+    """The fold's kernels (each set's three legs, the cofactor leg by
+    bls381_cofactor.cu's body, the segment sum, the tail) against
+    `_fold_lanes_plain`, whose cofactor is the 636-bit
+    ladder over h_eff's bits while the kernel's is the psi method: four
+    sets whose hash points are two hashed points before clearing, the
+    order-169 point (h_eff Q at infinity) and a padded row (infinity hash
+    point, aggregate and signature, coefficient 0), beside an infinity
+    aggregate and an infinity signature; or two sets whose signatures are
+    infinity (S at infinity, its pair skipped)."""
     g1, g2 = cv.g1_generator(), cv.g2_generator()
     if case == "valid lanes":
-        aggs = [g1 * 3, cv.g1_infinity(), g1 * 7, g1 * 9]
-        sigs = [g2 * 5, g2 * 6, cv.g2_infinity(), g2 * 8]
-        coeffs = [0xDEADBEEF12345678, 1, 0xFFFFFFFFFFFFFFFF, 0x8000000000000001]
+        rows = cofactor_rows()
+        hq = [rows[0], rows[1], rows[3], cv.g2_infinity()]
+        aggs = [g1 * 3, cv.g1_infinity(), g1 * 7, cv.g1_infinity()]
+        sigs = [g2 * 5, g2 * 6, cv.g2_infinity(), cv.g2_infinity()]
+        coeffs = [0xDEADBEEF12345678, 1, 0xFFFFFFFFFFFFFFFF, 0]
     else:
         aggs = [g1 * 3, g1 * 4]
         sigs = [cv.g2_infinity(), cv.g2_infinity()]
         coeffs = [0x1234, 0x5678]
+        hq = [g2 * (21 + i) for i in range(2)]
     k = len(aggs)
-    hq = [g2 * (21 + i) for i in range(k)]
     aggP, hP, sP = ct.g1_pack(aggs), ct.g2_pack(hq), ct.g2_pack(sigs)
     cbits = ct.scalars_to_bits(coeffs, 64)
-    hbits = ct.scalars_to_bits([0xB2D], 12)[0]
     consts = pairing_torch._fold_consts()
-    want = pairing_torch._fold_lanes_plain(aggP, cbits, hP, sP, hbits, consts)
+    want = pairing_torch._fold_lanes_plain(
+        aggP, cbits, hP, sP, pairing_torch._h_eff_bits(), consts)
     agg = _words(torch.stack(aggP, dim=1))
     hw = _words(torch.stack(hP, dim=1))
     sw_in = _words(torch.stack(sP, dim=1))
+    psi = _words(ct.psi_consts())
     cw = torch.cat([fq.to_words(c).reshape(-1) for c in consts]).contiguous()
     g1w = torch.empty((k + 1, 2, 12), dtype=torch.int32)
     g2w = torch.empty((k + 1, 2, 2, 12), dtype=torch.int32)
-    skip = torch.empty(k + 1, dtype=torch.uint8)
+    skip = torch.zeros(k + 1, dtype=torch.uint8)
     sw = torch.empty((k, 3, 2, 12), dtype=torch.int32)
     host_lib.fold(agg.data_ptr(), cbits.data_ptr(), 64, hw.data_ptr(),
-                  sw_in.data_ptr(), hbits.data_ptr(), 12, cw.data_ptr(),
+                  sw_in.data_ptr(), psi.data_ptr(), cw.data_ptr(),
                   g1w.data_ptr(), g2w.data_ptr(), skip.data_ptr(),
                   sw.data_ptr(), k)
     p, q = fq.from_words(g1w), fq.from_words(g2w)
     got = (p[:, 0], p[:, 1], q[:, 0], q[:, 1], skip.to(torch.bool))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    if case == "infinity sum":
+    if case == "valid lanes":
+        assert want[4].tolist() == [False, True, True, True, False]
+    else:
         assert want[4].tolist() == [False, False, True]
 
 
@@ -473,30 +506,56 @@ def _msm_rows(n, w_bits):
     return pts, scalars
 
 
-def _pippenger_host(host_lib, pt, digits, small):
+def _pippenger_host(host_lib, pts, scalars, small):
+    """The five launches' bodies over the points as given (no padding):
+    the result's compressed bytes."""
+    pt = ct.g1_pack(pts)
     words = _words(torch.stack(pt, dim=1))
-    d8 = digits.to(torch.uint8).contiguous()
+    digits = msm._digits_np([s % R for s in scalars], 4 if small else 8)
+    d8 = torch.from_numpy(digits.astype("uint8")).contiguous()
     out = torch.empty((3, 12), dtype=torch.int32)
     host_lib.pippenger(int(small), words.data_ptr(), d8.data_ptr(),
-                       pt[0].shape[0], out.data_ptr())
-    return fq.from_words(out)
+                       len(pts), out.data_ptr())
+    point = ct.g1_unpack(tuple(c[None] for c in fq.from_words(out)))[0]
+    return cv.g1_to_bytes(point)
 
 
 def test_pippenger_bodies_equal_the_plain_version(host_lib):
-    """At 4-bit windows and 4 lanes, 12 points padded to 16: the Jacobian
-    words of the three launches' bodies equal `_pippenger_g1`'s."""
-    pts, scalars = _msm_rows(12, 4)
+    """At 4-bit windows and chunks of 4 points, 45 points (not a multiple
+    of the chunk, so a bucket's last chunk is short; 15 buckets, so most
+    hold several chunks) with a zero scalar and an infinity point: the
+    compressed bytes of the five launches' result equal the plain
+    version's (over the points padded to 64 for its 4 lanes) and
+    `crypto/curve.msm`'s.  The Jacobian words differ: the plain version
+    adds in the reference's order."""
+    pts, scalars = _msm_rows(45, 4)
+    got = _pippenger_host(host_lib, pts, scalars, True)
     pt, digits = msm._pippenger_inputs(pts, scalars, "cpu", 4, 4)
-    got = _pippenger_host(host_lib, pt, digits, True)
-    want = msm._pippenger_g1(*pt, digits, w_bits=4, threads=4)
-    assert torch.equal(got, torch.stack(want))
+    plain = msm._pippenger_g1(*pt, digits, w_bits=4, threads=4)
+    want = cv.g1_to_bytes(ct.g1_unpack(tuple(c[None] for c in plain))[0])
+    assert got == want == cv.g1_to_bytes(cv.msm(pts, scalars))
+
+
+@pytest.mark.parametrize("small", [True, False], ids=["4-bit", "8-bit"])
+def test_pippenger_bodies_equal_the_oracle_at_equal_scalars(host_lib, small):
+    """Every scalar equal (a constant blob's commitment): each window's
+    points all land in one bucket, many chunks summed by the bucket's
+    tree.  The compressed bytes equal `crypto/curve.msm`'s and c times the
+    points' sum."""
+    n = 37 if small else 70
+    pts, _scalars = _msm_rows(n, 8)
+    c = random.Random(f"{SEED}-equal-{n}").randrange(R)
+    got = _pippenger_host(host_lib, pts, [c] * n, small)
+    total = cv.g1_infinity()
+    for p in pts:
+        total = total + p
+    assert got == cv.g1_to_bytes(cv.msm(pts, [c] * n)) \
+        == cv.g1_to_bytes(total * c)
 
 
 def test_pippenger_bodies_equal_the_oracle_at_full_windows(host_lib):
-    """At the kernel's 8-bit windows and 16 lanes and 256 points: the
+    """At the kernel's 8-bit windows and chunks of 16 and 256 points: the
     result's compressed bytes equal `crypto/curve.msm`'s."""
     pts, scalars = _msm_rows(256, 8)
-    pt, digits = msm._pippenger_inputs(pts, scalars, "cpu")
-    got = _pippenger_host(host_lib, pt, digits, False)
-    point = ct.g1_unpack(tuple(c[None] for c in got))[0]
-    assert cv.g1_to_bytes(point) == cv.g1_to_bytes(cv.msm(pts, scalars))
+    got = _pippenger_host(host_lib, pts, scalars, False)
+    assert got == cv.g1_to_bytes(cv.msm(pts, scalars))

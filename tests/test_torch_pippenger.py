@@ -142,13 +142,29 @@ def test_device_msm_without_a_card_raises(monkeypatch):
         msm.g1_multi_exp(pts, scalars)
 
 
-def test_wrapper_checks_its_inputs():
+def test_wrapper_checks_its_inputs(monkeypatch):
+    """The kernel takes any n >= 1 points; on the CPU the wrapper pads them
+    with infinity and digit 0 to a multiple of the plain version's 16
+    lanes before it calls the plain version."""
     pts, scalars = _case(16, 8, 5)
     pt, digits = msm._pippenger_inputs(pts, scalars, "cpu")
-    with pytest.raises(ValueError, match="multiple of 16"):
-        bls381_cuda.pippenger_g1(tuple(c[:8] for c in pt), digits[:, :8])
+    assert pt[0].shape == (16, 32) and digits.shape == (32, 16)
+    with pytest.raises(ValueError, match="no points"):
+        bls381_cuda.pippenger_g1(tuple(c[:0] for c in pt), digits[:, :0])
     with pytest.raises(ValueError, match="digits"):
         bls381_cuda.pippenger_g1(pt, digits[:16])
+    seen = []
+    monkeypatch.setattr(msm, "_pippenger_g1",
+                        lambda X, Y, Z, d: seen.append((X, Y, Z, d)))
+    bls381_cuda.pippenger_g1(tuple(c[:9] for c in pt), digits[:, :9])
+    X, Y, Z, d = seen[0]
+    inf = curve_torch.point_infinity_like(curve_torch.F1,
+                                          tuple(c[:1] for c in pt))
+    assert X.shape == (16, 32) and d.shape == (32, 16)
+    for got, row, want in zip((X, Y, Z), pt, inf):
+        assert torch.equal(got[:9], row[:9])
+        assert torch.equal(got[9:], want.expand(7, -1))
+    assert torch.equal(d[:, :9], digits[:, :9]) and not d[:, 9:].any()
     assert msm.g1_multi_exp([], []).is_infinity()
     with pytest.raises(ValueError, match="length mismatch"):
         msm.g1_multi_exp(pts, scalars[:3])
@@ -172,7 +188,8 @@ def test_plain_pippenger_equals_the_reference_xla_program():
 @pytest.mark.slow
 def test_pippenger_engine_pads_at_the_reference_parameters():
     pts, scalars = _case(300, 8, 7)
-    pt, digits = msm._pippenger_inputs(pts, scalars, "cpu")
+    pt, digits = msm._pippenger_inputs(pts, scalars, "cpu",
+                                       threads=msm._THREADS)
     assert pt[0].shape == (512, 32) and digits.shape == (32, 512)
     before = bls381_cuda.pippenger_g1.plain_calls
     got = _point(bls381_cuda.pippenger_g1(pt, digits))
