@@ -49,20 +49,23 @@ version:
    without a leak, without rewards and with electra's slashings, at 1, 255,
    257, 65,537, 2**18 and 2**20 lanes, and its times;
 9. bls kernels: every op of the field kernel on 2**16 seeded elements, the
-   h_eff ladder on 1, 64 and 1,024 points, and the Miller values, products
-   and verdicts of a valid and an invalid check at k = 2, 129 and 1,024
-   pairs, each equal to the plain torch version on the card bit for bit;
-   the cofactor kernel's affine words at 1, 64 and 1,024 points (a row
-   of order 169 and an infinity row from 64) equal to its plain psi
-   version and to the ladder followed by the normalization, and the
+   h_eff ladder on 1, 64 and 1,024 points (one plain call on the first 64 and
+   64 seeded rows of the 1,024), and the Miller values, products and
+   verdicts of a valid and an invalid check at k = 2, 129 and 1,024 pairs
+   (the pairing kernel's two launches, four warps a pair or a job), each
+   equal to the plain torch version on the card bit for bit; the cofactor
+   kernel's affine words at 1, 64 and 1,024 points (a row of order 169
+   and an infinity row from 64; the plain version on 128 seeded rows of
+   the 1,024 with those two) equal to its plain psi version and to the
+   ladder followed by the normalization, and the
    four-warp check's product before the final exponentiation and verdicts
    at k = 2, 129 and 1,024 and at 14 jobs of k = 2 equal to miller +
    product_final and to its plain version, bit for bit; the times of the
    main path's shapes (one check of two pairs, one cofactor clearing, and
-   what they replace: the two pairing launches, one ladder, one affine
-   normalization) from a CUDA graph side by side, with the plain
-   version's times and the operation bounds (the new kernels' from their
-   plain versions' product counters);
+   what they replace: one ladder, one affine normalization; the pairing's
+   two launches beside the check) from a CUDA graph side by side, with
+   the plain version's times and the operation bounds (the new kernels'
+   from their plain versions' product counters);
 10. bls: seeded Verify (valid, tampered, wrong key, infinity),
    FastAggregateVerify over a 128-key committee (valid, invalid) and
    AggregateVerify over 8 messages on the shim's device backend, each
@@ -72,11 +75,15 @@ version:
    (1,024 and 16,384 lanes of 64 bits, the larger on a seeded sample of
    1,024 rows) and the fold kernels (a set's three legs as three kernels
    on three streams, its cofactor by the psi kernel) with the Miller
-   product after it (k = 16 from 14
-   sets, and 256, valid and with one bad set) against their plain torch
-   versions on the card, bit for bit; at
+   product after it (k = 16 from 14 sets and 256, valid and with one bad
+   set) against their plain torch versions on the card, bit for bit; at
    k = 1,024 the verdict and the 1,025 legs against the host's integers;
-   the times of the block's shapes from a CUDA graph;
+   the times of the block's shapes from a CUDA graph; the pairing kernel's
+   launches alone at the flush's shapes (launch 1 over the block's 17 legs
+   and a 256-set flush's 257, launch 2 over one job of as many values
+   without the final exponentiation and over the block's partial product
+   with it), each bit for bit against the plain version, timed through
+   its wrapper from a CUDA graph beside its plain time and bound;
 12. flush: seeded flushes of 16 sets (set 8 bad) and 256 through
    `scheduler.verify_sets` as the one-launch fold, the staged fold and
    unfolded: the verdicts equal each other, the construction and the
@@ -305,10 +312,10 @@ def build_phase():
                         "nvcc")
     release = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True).stdout.strip().splitlines()
-    print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_pairing, "
-          f"bls381_g2, bls381_field, bls381_msm (segment sums, G1 ladder), "
-          f"bls381_fold, bls381_cofactor, bls381_check and bls381_pippenger "
-          f"built by "
+    print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_g2, "
+          f"bls381_field, bls381_msm (segment sums, G1 ladder), bls381_fold, "
+          f"bls381_cofactor, bls381_check (with bls381_pairing's two "
+          f"launches) and bls381_pippenger built by "
           f"{cuda_build.build_route} into {cuda_build.BUILD_DIR} with nvcc "
           f"{release[-1] if release else 'of unknown version'}")
     print_resource_usage()
@@ -321,9 +328,8 @@ def print_resource_usage():
     from torch.utils import cpp_extension
     tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
                         "cuobjdump")
-    for name in ("bls381_pairing", "bls381_g2", "bls381_field", "bls381_msm",
-                 "bls381_fold", "bls381_cofactor", "bls381_check",
-                 "bls381_pippenger"):
+    for name in ("bls381_g2", "bls381_field", "bls381_msm", "bls381_fold",
+                 "bls381_cofactor", "bls381_check", "bls381_pippenger"):
         objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
                 if f.startswith(name) and f.endswith(".o")]
         if not objs or not os.path.exists(tool):
@@ -1332,7 +1338,12 @@ FQ2_INV = 4 + FQ_INV
 FQ6_INV = 33 + FQ2_INV
 FQ12_INV = 72 + FQ6_INV
 EXP_BY_X = 63 * 18 + _X_ONES * 54
-MILLER_PRODUCTS = 63 * (34 + 36 + 54) + _X_ONES * (43 + 54)
+# a line (c0 + c1 v + c4 v w) is sparse: multiplying by it needs 13 Fq2
+# products, where the kernels and the plain version multiply it as a dense
+# Fq12 (54); the bounds count what is needed, as they count f^2 as a square
+LINE_PRODUCTS = 13 * 3
+MILLER_PRODUCTS = 63 * (34 + 36 + LINE_PRODUCTS) \
+    + _X_ONES * (43 + LINE_PRODUCTS)
 FINAL_EXP_PRODUCTS = (FQ12_INV + 2 * 54 + 2 * 18) + 2 * 18 + 5 * EXP_BY_X \
     + 10 * 54 + 6 * 18
 # products of one element of each field op (points: the generic add)
@@ -1352,6 +1363,9 @@ FIELD_CHUNK = {12: 1 << 16, 24: 1 << 16, 36: 1 << 15, 72: 1 << 13,
 LADDER_SIZES = (1, 64, 1024)
 MILLER_SIZES = (2, 129, 1024)
 COFACTOR_SIZES = (1, 64, 1024)  # Kernel A's holds (an infinity row from 64)
+# rows of a ladder or cofactor run above this size that the plain version
+# holds: a seeded sample with the last two (the cofactor's edge rows)
+HOLD_SAMPLE = 128
 CHECK_JOBS = 14                 # Kernel B at a block's 14 checks of k = 2
 # Kernel A's Fq products a point (csrc/bls381_reg.cuh cofactor_elem),
 # counted from the method, which gives its bound: two multiplications by x
@@ -1366,6 +1380,18 @@ COFACTOR_PRODUCTS = COFACTOR_METHOD_PRODUCTS + 15 * G2_DOUBLE_PRODUCTS
 FAV_COMMITTEE = 128
 CARD = "cuda"                   # where the BLS phases put their tensors
 AV_MESSAGES = 8
+
+
+def timed_once(fn):
+    """(ms, fn()) of one run of fn on the card, by CUDA events (no
+    warm-up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def plain_products(fn):
@@ -1516,6 +1542,19 @@ def _cofactor_points(n):
     return pt
 
 
+def _hold_rows(n, head=0):
+    """Rows of an n-row ladder or cofactor run that the plain version
+    holds: every row up to HOLD_SAMPLE, else HOLD_SAMPLE rows: the first
+    `head`, a seeded sample of the rest and the last two."""
+    size = HOLD_SAMPLE
+    if n <= size:
+        return torch.arange(n, device=CARD)
+    rng = np.random.default_rng([SEED, 16, n, size])
+    rest = head + rng.choice(n - 2 - head, size - 2 - head, replace=False)
+    return torch.from_numpy(np.concatenate(
+        [np.arange(head), np.sort(rest), [n - 2, n - 1]])).to(CARD)
+
+
 def _max_err(got, want):
     if isinstance(got, (tuple, list)):
         return max(_max_err(g, w) for g, w in zip(got, want))
@@ -1525,8 +1564,9 @@ def _max_err(got, want):
 @phase("bls kernels")
 def bls_kernels_phase(n_sms, max_mhz):
     """The five scalar BLS kernels against their plain torch versions on
-    the card, bit for bit: every field op on 2^16 seeded elements, the
-    h_eff ladder on 1, 64 and 1,024 points, Miller products and verdicts
+    the card, bit for bit: every field op on 2^16 seeded elements, the h_eff
+    ladder on 1, 64 and 1,024 points (HOLD_SAMPLE rows held), Miller
+    products and verdicts
     of a valid and an invalid check at k = 2, 129 and 1,024 pairs; the
     cofactor kernel (psi) on 1, 64 and 1,024 points against its plain
     version and the ladder plus normalization; the four-warp check at the
@@ -1564,38 +1604,52 @@ def bls_kernels_phase(n_sms, max_mhz):
               f"graph through the wrapper, {alone_ms:.6f} ms the kernel "
               f"alone, bound {bound_ms:.6f} ms by {bound_by}", flush=True)
 
+    t0 = time.perf_counter()
     h_bits = torch.from_numpy(bls_cuda._H_EFF_BITS).to(CARD)
+    # every size's points are the first n of the largest's, so one plain
+    # call holds them all: the first LADDER_SIZES[1] rows and a sample
+    pts = _ladder_points(LADDER_SIZES[-1])
+    held = _hold_rows(LADDER_SIZES[-1], head=LADDER_SIZES[1])
+    want = curve_torch.point_scalar_mul(
+        curve_torch.F2, tuple(c[held] for c in pts),
+        h_bits.expand(len(held), -1))
     for n in LADDER_SIZES:
-        pt = _ladder_points(n)
-        bits = h_bits.expand(n, -1)
-        got = bls381_cuda.g2_ladder(pt, bits)
-        want = curve_torch.point_scalar_mul(curve_torch.F2, pt, bits)
+        got = bls381_cuda.g2_ladder(tuple(c[:n] for c in pts),
+                                    h_bits.expand(n, -1))
+        mine = held < n
         torch.cuda.synchronize()
-        err = _max_err(got, want)
+        err = _max_err(tuple(c[held[mine]] for c in got),
+                       tuple(c[mine] for c in want))
         max_err["bls381_g2"] = max(max_err["bls381_g2"], err)
         check(err == 0, f"bls381_g2 != plain at {n} points ({err})")
-        print(f"bls381_g2: h_eff ladder == plain bit for bit at {n} points",
-              flush=True)
+        print(f"bls381_g2: h_eff ladder == plain bit for bit at {n} points "
+              f"({int(mine.sum())} rows held; {time.perf_counter() - t0:.6f}"
+              f" s into the phase)", flush=True)
 
     for n in COFACTOR_SIZES:
         pt = _cofactor_points(n)
+        rows = _hold_rows(n)
         got = bls381_cuda.clear_cofactor_g2(pt)
-        plain = curve_torch.clear_cofactor_g2_plain(pt)
+        plain = curve_torch.clear_cofactor_g2_plain(
+            tuple(c[rows] for c in pt))
         old = bls381_cuda.g2_ladder(pt, h_bits.expand(n, -1))
         old_xy = _old_affine_g2(old)
         torch.cuda.synchronize()
-        err = max(_max_err(got[:2], plain[:2]), _max_err(got[:2], old_xy))
+        err = max(_max_err(tuple(c[rows] for c in got[:2]), plain[:2]),
+                  _max_err(got[:2], old_xy))
         max_err["bls381_cofactor"] = max(max_err["bls381_cofactor"], err)
-        check(err == 0 and torch.equal(got[2], plain[2])
+        check(err == 0 and torch.equal(got[2][rows], plain[2])
               and torch.equal(got[2], ft.fq2_is_zero(old[2])),
               f"bls381_cofactor != plain or ladder + normalization at {n} "
               f"points ({err})")
         check(n < 64 or got[2][-2:].tolist() == [True, True],
               "bls381_cofactor: the order-169 and infinity rows did not "
               "come out as infinity")
-        print(f"bls381_cofactor: affine h_eff P == plain psi version == "
-              f"ladder + normalization bit for bit at {n} points "
-              f"({int(got[2].sum())} at infinity)", flush=True)
+        print(f"bls381_cofactor: affine h_eff P == plain psi version "
+              f"({len(rows)} rows held) == ladder + normalization (every "
+              f"row) bit for bit at {n} points ({int(got[2].sum())} at "
+              f"infinity; {time.perf_counter() - t0:.6f} s into the phase)",
+              flush=True)
 
     for k in MILLER_SIZES:
         jobs = [_pairing_jobs(k, True), _pairing_jobs(k, False)]
@@ -1629,7 +1683,8 @@ def bls_kernels_phase(n_sms, max_mhz):
               f"for bit at k = {k}; bls381_check: the product before the "
               f"final exponentiation == miller + product_final == its plain "
               f"version bit for bit; verdicts [valid, invalid] == [True, "
-              f"False] in all four", flush=True)
+              f"False] in all four ({time.perf_counter() - t0:.6f} s into "
+              f"the phase)", flush=True)
 
     jobs = [_pairing_jobs(2, i % 2 == 0) for i in range(CHECK_JOBS)]
     batch = tuple(torch.stack([j[c] for j in jobs]) for c in range(4)) + (
@@ -1661,24 +1716,23 @@ def bls_kernels_phase(n_sms, max_mhz):
         f = bls381_cuda.miller(xp, yp, xq, yq, skip)
         return bls381_cuda.product_final(f.reshape(1, 2, 12, 32))
 
-    def check_plain():
-        f = pairing_torch.miller_loop(xp, yp, xq, yq, skip)
-        return pairing_torch.product_final(f.reshape(1, 2, 12, 32))
-
     def check_new():
         return bls381_cuda.pairing_check(*one_job)
-    got, want = check_once(), check_plain()
+    got = check_once()
     new = check_new()
-    check(_max_err(got[0], want[0]) == 0 and bool(got[1][0])
-          and _max_err(new[0], got[0]) == 0 and bool(new[1][0]),
-          "bls381_pairing and bls381_check at the main path's shape")
-    products = 2 * MILLER_PRODUCTS + 54 + FINAL_EXP_PRODUCTS
-    times["bls381_pairing"] = (graph_ms(check_once, 5),
-                               cuda_ms(check_plain, 1),
-                               *op_bound(products, (2 * 72 + 144) * 4,
-                                         n_sms, max_mhz))
+    check(_max_err(new[0], got[0]) == 0 and bool(got[1][0])
+          and bool(new[1][0]),
+          "bls381_pairing and bls381_check at the main path's shape (both "
+          "held against the plain version at k = 2 above)")
+    # the pairing's launches are timed beside their plain version and
+    # bound at the flush's shapes (pairing_launches); here only side by
+    # side with the check
+    two_launch_ms = graph_ms(check_once, 5)
     new_plain_ms, check_products = plain_products(
         lambda: pairing_torch.check_plain(*one_job))
+    # the plain version multiplies each bit's two lines into f as two
+    # dense Fq12 products; the bound counts them as sparse ones
+    check_products -= 2 * (63 + _X_ONES) * (54 - LINE_PRODUCTS)
     times["bls381_check"] = (graph_ms(check_new, 5), new_plain_ms,
                              *op_bound(check_products, (2 * 72 + 144) * 4,
                                        n_sms, max_mhz))
@@ -1730,7 +1784,7 @@ def bls_kernels_phase(n_sms, max_mhz):
               f"ms by {bound_by}; no PyTorch call computes it, so no "
               f"library time")
     old_a = times["bls381_g2"][0] + times["bls381_field"][0]
-    old_b = times["bls381_pairing"][0]
+    old_b = two_launch_ms
     print(f"side by side, one point: bls381_cofactor "
           f"{times['bls381_cofactor'][0]:.6f} ms against the ladder and the "
           f"4-launch normalization {old_a:.6f} ms "
@@ -1743,7 +1797,8 @@ def bls_kernels_phase(n_sms, max_mhz):
           f"doublings its adds discard), {cofactor_plain_products} its plain "
           f"version's counter; bls381_check {check_products}, its plain "
           f"version's counter with its Fq inverse counted as the binary "
-          f"GCD's one product (its bound); the ladder {ladder_products}; "
+          f"GCD's one product and its line products as sparse ones (its "
+          f"bound); the ladder {ladder_products}; "
           f"dependent Fq product: "
           f"{times['bls381_cofactor'][0] * 1e6 / COFACTOR_PRODUCTS:.1f} ns "
           f"in bls381_cofactor (one thread), "
@@ -2249,15 +2304,15 @@ def flush_kernels_phase(n_sms, max_mhz):
     segments up to 2,048, on G2 at one segment of 1,024; K2 (the G1
     ladder) at 1,024 and 16,384 lanes of 64 bits (the larger on a seeded
     sample of K2_SAMPLE rows); K4 (the fold's legs, with its K1 and its
-    tail) and the Miller product after it at k = 16
-    (14 sets and two padded rows) and 256, valid and with one bad set.  At
-    k = 1,024 the verdict and the 1,025 legs against the host's integer
-    arithmetic.  Then the times of the block's shapes from a CUDA graph,
-    beside the plain versions' and the operation bounds (K4's with its
-    cofactor counted by the psi method), and K4's longest leg, the
-    cofactor kernel on the flush's hash points, alone."""
+    tail) and the Miller product after it at k = 16 (14 sets and two
+    padded rows) and 256, valid and with one bad set.  At k = 1,024 the verdict and the 1,025 legs
+    against the host's integer arithmetic.  Then the times of the block's
+    shapes from a CUDA graph, beside the plain versions' and the
+    operation bounds (K4's with its cofactor counted by the psi method),
+    K4's longest leg, the cofactor kernel on the flush's hash points,
+    alone, and the pairing kernel's launches (pairing_launches)."""
     max_err = {"bls381_segment_sum": 0, "bls381_g1_ladder": 0,
-               "bls381_fold": 0}
+               "bls381_fold": 0, "bls381_pairing": 0}
     t0 = time.perf_counter()
     cases = {"G1 8 x 128": ("g1", [K1_BLOCK[1]] * K1_BLOCK[0],
                             K1_BLOCK[1])}
@@ -2307,10 +2362,12 @@ def flush_kernels_phase(n_sms, max_mhz):
               f"{time.perf_counter() - t0:.6f} s into the phase)",
               flush=True)
 
+    fold_in = {}
     for n_sets, k in K4_SIZES:
         _sets, aggs, sigs, coeffs = flush_case(n_sets)
         valid = shard_verify.fold_inputs(
             aggs, coeffs, [s.signing_root for s in _sets], sigs)
+        fold_in[k] = valid
         check(valid[0][0].shape[0] == k, f"fold at {n_sets} sets: "
               f"{valid[0][0].shape[0]} lanes, expected {k}")
         for bad in (False, True):
@@ -2420,6 +2477,11 @@ def flush_kernels_phase(n_sms, max_mhz):
         ladder_products(g2_bits.cpu().numpy(), G2_DOUBLE_PRODUCTS,
                         G2_ADD_PRODUCTS) + (n_sets - 1) * G2_ADD_PRODUCTS,
         k * (72 * 4 + 64) + 72 * 4, n_sms, max_mhz)
+    times["bls381_pairing"] = pairing_launches(
+        {k + 1: bls381_cuda.fold_lanes(*inputs, consts),
+         K4_SIZES[1][1] + 1: bls381_cuda.fold_lanes(
+             *fold_in[K4_SIZES[1][1]], consts)}, k + 1, max_err, n_sms,
+        max_mhz)
     for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
         print(f"{name} at the block's shape: {ms:.6f} ms from a CUDA "
               f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
@@ -2435,6 +2497,64 @@ def flush_kernels_phase(n_sms, max_mhz):
           f"plain bit for bit) {mexp_ms:.6f} ms, plain torch "
           f"{mexp_plain_ms:.6f} ms, bound {mexp_bound:.6f} ms by {mexp_by}")
     return max_err, times
+
+
+def pairing_launches(legs, block_legs, max_err, n_sms, max_mhz):
+    """The pairing kernel's launches alone, each through its wrapper
+    (bls381_cuda.miller, product_final) from a CUDA graph, beside the plain
+    version's time and the operation bound, and held against the plain
+    version bit for bit: launch 1 over each set of fold legs in `legs`
+    ({n: (xp, yp, xq, yq, skip)}), launch 2 over one job of their n Miller
+    values without the final exponentiation, and over one job of the
+    block's partial product with it.  Returns (ms, plain ms, bound ms,
+    bound_by) of the block's three launches (block_legs legs): the flush's
+    chain after its lanes."""
+    final_products = FINAL_EXP_PRODUCTS - (FQ_INV - GCD_FQ_INV)
+    rows = {}
+
+    def row(label, key, fn, plain, products, n_bytes):
+        ms = graph_ms(fn, 3)
+        got = fn()
+        plain_ms, want = timed_once(plain)
+        # the Fq12 values (product_final's product; its verdict below)
+        err = _max_err(*(out[0] if isinstance(out, tuple) else out
+                         for out in (got, want)))
+        bound_ms, bound_by = op_bound(products, n_bytes, n_sms, max_mhz)
+        max_err["bls381_pairing"] = max(max_err["bls381_pairing"], err)
+        check(err == 0, f"bls381_pairing {label} != plain ({err})")
+        rows[key] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"bls381_pairing {label}: == plain bit for bit; {ms:.6f} ms "
+              f"from a CUDA graph, plain torch {plain_ms:.6f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({products} products)",
+              flush=True)
+        return got, want
+
+    for n, pairs in legs.items():
+        live = int((~pairs[4]).sum())
+        f, _ = row(f"launch 1 (Miller loops) at {n} legs, {live} live",
+                   ("miller", n), lambda: bls381_cuda.miller(*pairs),
+                   lambda: pairing_torch.miller_loop(*pairs),
+                   live * MILLER_PRODUCTS, n * ((24 + 48 + 144) * 4 + 1))
+        (prod, _), _ = row(
+            f"launch 2 (product) over one job of {n}", ("product", n),
+            lambda: bls381_cuda.product_final(f[None], final=False),
+            lambda: pairing_torch.product_final(f[None], final=False),
+            54 * (n - 1), (n + 1) * 144 * 4)
+        if n != block_legs:
+            continue
+        (_, ok), (_, want_ok) = row(
+            "launch 2 (final exponentiation) over one job of 1, verdict "
+            "True", ("final", 1),
+            lambda: bls381_cuda.product_final(prod[None], final=True),
+            lambda: pairing_torch.product_final(prod[None], final=True),
+            final_products, 2 * 144 * 4 + 1)
+        check(ok.tolist() == want_ok.tolist() == [True],
+              f"bls381_pairing's verdict on the block's flush: "
+              f"{ok.tolist()}, plain {want_ok.tolist()}")
+    chain = [rows[("miller", block_legs)], rows[("product", block_legs)],
+             rows[("final", 1)]]
+    return (sum(r[0] for r in chain), sum(r[1] for r in chain),
+            sum(r[2] for r in chain), "operations")
 
 
 def _flush_counts():
@@ -2981,9 +3101,12 @@ def main(argv=None):
             ("bls381_check", "bls381_check.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:706",
              bls_launches["bls381_check"], bls_err, bls_times),
-            ("bls381_pairing", "bls381_pairing.cu",
+            ("bls381_pairing", "bls381_pairing.cuh",
              "consensus_specs_tpu/ops/pairing_jax.py:393",
-             sig_launches["bls381_pairing"], bls_err, bls_times),
+             sig_launches["bls381_pairing"],
+             {"bls381_pairing": max(bls_err["bls381_pairing"],
+                                    flush_err["bls381_pairing"])},
+             flush_times),
             ("bls381_g2", "bls381_g2.cu",
              "consensus_specs_tpu/ops/curve_jax.py:175",
              flush_launches["g2_ladder"], bls_err, bls_times),

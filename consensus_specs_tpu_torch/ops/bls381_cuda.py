@@ -3,13 +3,15 @@
 Counterparts of the XLA device programs of consensus_specs_tpu/ops/fq.py,
 fq_tower.py, curve_jax.py, pairing_jax.py, g1_sweep.py and msm.py.  Eight
 kernels, written for sm_90a on one set of device functions
-(csrc/bls381.cuh, and for the cofactor and check kernels its
+(csrc/bls381.cuh, and for the cofactor, check and pairing kernels its
 register-resident redesign csrc/bls381_reg.cuh), built at first use with
 the port's other kernels (ops/cuda_build.py):
 
-- csrc/bls381_pairing.cu, the pairing check in two launches: `miller`
-  (launch 1, a Miller loop a pair) and `product_final` (launch 2, a job's
-  product and final exponentiation);
+- the pairing in two launches, four warps a pair or a job on the check's
+  levels (bodies csrc/bls381_pairing.cuh on csrc/bls381_check.cuh, kernels
+  in csrc/bls381_check.cu): `miller` (launch 1, a pair's Miller loop a
+  block) and `product_final` (launch 2, a job's product and final
+  exponentiation a block);
 - csrc/bls381_g2.cu, the G2 ladder: `g2_ladder`;
 - csrc/bls381_field.cu, one elementwise kernel over the field, tower and
   curve ops: `field_op`;
@@ -23,8 +25,9 @@ the port's other kernels (ops/cuda_build.py):
   with the affine result (`clear_cofactor_g2`, a thread a point);
 - csrc/bls381_check.cu, the pairing check in one launch, four warps a job
   (`pairing_check`).  These two replace the ladder, the field kernel and
-  the pairing kernel's two launches on the check-by-check path; the older
-  kernels stay for the signature flush and the staged multi-exponentiation;
+  the pairing kernel's two launches on the check-by-check path; the
+  pairing's launches stay for the signature flush, the ladder for the
+  staged multi-exponentiation;
 - csrc/bls381_pippenger.cu, the windowed Pippenger G1 MSM of the KZG
   engine in five launches (`pippenger_g1`; device bodies
   csrc/bls381_pippenger.cuh on bls381.cuh), held to the plain version's
@@ -360,11 +363,11 @@ fold_lanes.plain_calls = 0
 
 
 def miller(xp, yp, xq, yq, skip):
-    """Launch 1 of the pairing check: the Miller loop of each pair, P =
-    (xp, yp) [n, 32], Q = (xq, yq) [n, 2, 32] affine Montgomery limbs,
-    skip bool [n].  Returns f [n, 12, 32] (conjugated; one where skip).
-    The kernel on CUDA tensors, the plain version
-    (pairing_torch.miller_loop) on CPU tensors."""
+    """Launch 1 of the pairing: the Miller loop of each pair, P = (xp, yp)
+    [n, 32], Q = (xq, yq) [n, 2, 32] affine Montgomery limbs, skip bool
+    [n].  Returns f [n, 12, 32] (conjugated; one where skip).  The kernel
+    on CUDA tensors (csrc/bls381_pairing.cuh, four warps a pair), the plain
+    version (pairing_torch.miller_loop) on CPU tensors."""
     n = xp.shape[0] if xp.dim() == 2 else -1
     for name, t, suffix in (("xp", xp, (32,)), ("yp", yp, (32,)),
                             ("xq", xq, (2, 32)), ("yq", yq, (2, 32))):
@@ -395,10 +398,12 @@ miller.plain_calls = 0
 
 
 def product_final(f, final: bool = True):
-    """Launch 2 of the pairing check: f [b, k, 12, 32] Miller values ->
+    """Launch 2 of the pairing: f [b, k, 12, 32] Miller values ->
     (product [b, 12, 32], is_one bool [b] of the product's final
-    exponentiation, or None without `final`).  The kernel on CUDA tensors,
-    the plain version (pairing_torch.product_final) on CPU tensors."""
+    exponentiation, or None without `final`).  The kernel on CUDA tensors
+    (csrc/bls381_pairing.cuh, four warps a job: two running products in
+    shared memory, then the final exponentiation), the plain
+    version (pairing_torch.product_final) on CPU tensors."""
     _check("product_final f", f, (12, 32), torch.int64)
     if f.dim() != 4 or f.shape[1] < 1:
         raise ValueError(f"product_final: expected f [b, k >= 1, 12, 32], "

@@ -1,6 +1,7 @@
-// BLS12-381 device functions for the port's kernels (sm_90a): the base
-// field Fq, the tower Fq2 -> Fq6 -> Fq12, Jacobian G1/G2 points, the Miller
-// loop steps of the optimal ate pairing and its final exponentiation.
+// BLS12-381 device functions for the port's first kernels (sm_90a): the
+// base field Fq, the tower Fq2 -> Fq6 -> Fq12 and Jacobian G1/G2 points.
+// The pairing's Miller loop and final exponentiation are the warp levels
+// of bls381_check.cuh, on the register-resident bls381_reg.cuh.
 //
 // Replaces the limb arithmetic the TPU ran as XLA programs:
 // consensus_specs_tpu/ops/fq.py (`mul` = `_conv` + `_mont_reduce`, 32 x
@@ -16,19 +17,18 @@
 // What bounds these kernels on the card: operations, the 32-bit integer
 // multiplies of the CIOS products (2 * 12 * 12 * 2 + 12 = 588 a product at
 // 64 multiplies a clock an SM).  The first design keeps one thread per
-// element, pair, point or job with its whole state in registers and local
-// memory; the tower and point functions are out of line (__noinline__) to
-// keep the build of all kernels short.
+// element or point with its whole state in registers and local memory; the
+// tower and point functions are out of line (__noinline__) to keep the
+// build of all kernels short.
 //
 // Any correct formula gives the same canonical field element, so the field
-// and tower formulas are free.  Three things set a representation and
-// follow the reference step by step: the Jacobian coordinates of the point
+// and tower formulas are free.  Two things set a representation and follow
+// the reference step by step: the Jacobian coordinates of the point
 // formulas (dbl-2009-l, add-2007-bl, with the reference's select semantics
-// at infinity, equal and negated inputs), the line scalings of the Miller
-// steps, and the Granger-Scott cyclotomic square (not a square off the
-// cyclotomic subgroup).  The public exponents (|x|, q - 2, a ladder's bits)
-// skip their zero bits with a branch; the reference selects, with the same
-// result.
+// at infinity, equal and negated inputs) and the Granger-Scott cyclotomic
+// square (not a square off the cyclotomic subgroup).  The public exponents
+// (q - 2, a ladder's bits) skip their zero bits with a branch; the
+// reference selects, with the same result.
 //
 // The header also compiles as host C++ (no __CUDACC__): the same functions,
 // so they can be checked against the plain version without a card.
@@ -69,8 +69,8 @@ BLS_CONST uint32_t BLS_ONE[BLS_NW] = {
     0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,
     0xfa80e493u, 0x15f65ec3u};
 #define BLS_QINV 0xfffcfffdu   // -q^{-1} mod 2^32
-// |x| = 0xd201000000010000; the Miller loop and exp-by-x walk its bits
-// 62..0 (below the leading one)
+// |x| = 0xd201000000010000; the Miller loop and exp-by-x
+// (bls381_check.cuh) walk its bits 62..0 (below the leading one)
 #define BLS_X_ABS 0xd201000000010000ull
 // Frobenius constants XI^(k(q-1)/6), Montgomery form, for the fq12
 // components in layout order (k = 0, 2, 4, 1, 3, 5)
@@ -265,9 +265,6 @@ BLS_FN fp2 fp2_conj(const fp2& a) { return fp2_make(a.c0, fp_neg(a.c1)); }
 BLS_FN fp2 fp2_mul_xi(const fp2& a) {
   return fp2_make(fp_sub(a.c0, a.c1), fp_add(a.c0, a.c1));
 }
-BLS_FN fp2 fp2_mul_fp(const fp2& a, const fp& s) {
-  return fp2_make(fp_mul(a.c0, s), fp_mul(a.c1, s));
-}
 
 // Karatsuba: 3 Fq products
 BLS_CALL fp2 fp2_mul(const fp2& a, const fp2& b) {
@@ -354,18 +351,6 @@ BLS_FN fp12 fp12_make(const fp6& a, const fp6& b) {
   r.c0 = a;
   r.c1 = b;
   return r;
-}
-BLS_FN fp12 fp12_one() {
-  const fp2 z = fp2_zero();
-  return fp12_make(fp6_make(fp2_one(), z, z), fp6_make(z, z, z));
-}
-BLS_FN bool fp12_is_one(const fp12& a) {
-  const fp12 one = fp12_one();
-  const uint32_t* x = a.c0.c0.c0.v;
-  const uint32_t* y = one.c0.c0.c0.v;
-  uint32_t acc = 0;
-  for (int i = 0; i < 12 * BLS_NW; ++i) acc |= x[i] ^ y[i];
-  return acc == 0;
 }
 BLS_FN fp12 fp12_conj(const fp12& a) { return fp12_make(a.c0, fp6_neg(a.c1)); }
 
@@ -556,144 +541,6 @@ BLS_FN bool pt_affine(const pt<F>& p, const F& sx, const F& sy, F& x, F& y) {
 }
 
 // ---------------------------------------------------------------------------
-// the optimal ate pairing
-// ---------------------------------------------------------------------------
-
-struct line { fp2 c0, c1, c4; };
-
-// the sparse line c0 + c1 v + c4 v w as an Fq12
-BLS_FN fp12 line_fp12(const line& l) {
-  const fp2 z = fp2_zero();
-  return fp12_make(fp6_make(l.c0, l.c1, z), fp6_make(z, l.c4, z));
-}
-
-// tangent at T evaluated at P, scaled by w^3 and 2 Y Z^3:
-// c0 = 3X^3 - 2Y^2, c1 = -3X^2 Z^2 xp, c4 = 2 Y Z^3 yp; then T <- 2T
-BLS_CALL line miller_double(pt<fp2>& T, const fp& xp, const fp& yp) {
-  const fp2 X2 = fp2_sqr(T.x);
-  const fp2 Y2 = fp2_sqr(T.y);
-  const fp2 Z2 = fp2_sqr(T.z);
-  const fp2 X3 = fp2_mul(T.x, X2);
-  const fp2 Z3 = fp2_mul(T.z, Z2);
-  line l;
-  l.c0 = fp2_sub(fp2_add(X3, fp2_add(X3, X3)), fp2_add(Y2, Y2));
-  fp2 t = fp2_mul(X2, Z2);
-  t = fp2_add(t, fp2_add(t, t));
-  l.c1 = fp2_neg(fp2_mul_fp(t, xp));
-  const fp2 YZ3 = fp2_mul(T.y, Z3);
-  l.c4 = fp2_mul_fp(fp2_add(YZ3, YZ3), yp);
-
-  const fp2 C = fp2_sqr(Y2);
-  fp2 D = fp2_sub(fp2_sub(fp2_sqr(fp2_add(T.x, Y2)), X2), C);
-  D = fp2_add(D, D);
-  const fp2 E = fp2_add(X2, fp2_add(X2, X2));
-  const fp2 Xn = fp2_sub(fp2_sqr(E), fp2_add(D, D));
-  fp2 C8 = fp2_add(C, C);
-  C8 = fp2_add(C8, C8);
-  C8 = fp2_add(C8, C8);
-  const fp2 Yn = fp2_sub(fp2_mul(E, fp2_sub(D, Xn)), C8);
-  const fp2 yz = fp2_mul(T.y, T.z);
-  T.x = Xn;
-  T.y = Yn;
-  T.z = fp2_add(yz, yz);
-  return l;
-}
-
-// line through T and the affine Q = (x2, y2) at P, scaled by Z1 lam:
-// theta = Y1 - y2 Z1^3, lam = X1 - x2 Z1^2, c0 = theta x2 - y2 Z1 lam,
-// c1 = -theta xp, c4 = Z1 lam yp; then T <- T + Q (madd-2007-bl)
-BLS_CALL line miller_add(pt<fp2>& T, const fp2& x2, const fp2& y2,
-                         const fp& xp, const fp& yp) {
-  const fp2 Z1Z1 = fp2_sqr(T.z);
-  const fp2 U2 = fp2_mul(x2, Z1Z1);
-  const fp2 S2 = fp2_mul(y2, fp2_mul(T.z, Z1Z1));
-  const fp2 theta = fp2_sub(T.y, S2);
-  const fp2 lam = fp2_sub(T.x, U2);
-  const fp2 Z1lam = fp2_mul(T.z, lam);
-  line l;
-  l.c0 = fp2_sub(fp2_mul(theta, x2), fp2_mul(y2, Z1lam));
-  l.c1 = fp2_neg(fp2_mul_fp(theta, xp));
-  l.c4 = fp2_mul_fp(Z1lam, yp);
-
-  const fp2 H = fp2_neg(lam);
-  const fp2 HH = fp2_sqr(H);
-  fp2 I = fp2_add(HH, HH);
-  I = fp2_add(I, I);
-  const fp2 J = fp2_mul(H, I);
-  fp2 r = fp2_neg(theta);
-  r = fp2_add(r, r);
-  const fp2 V = fp2_mul(T.x, I);
-  const fp2 Xn = fp2_sub(fp2_sub(fp2_sqr(r), J), fp2_add(V, V));
-  const fp2 YJ = fp2_mul(T.y, J);
-  const fp2 Yn = fp2_sub(fp2_mul(r, fp2_sub(V, Xn)), fp2_add(YJ, YJ));
-  const fp2 zh = fp2_mul(T.z, H);
-  T.x = Xn;
-  T.y = Yn;
-  T.z = fp2_add(zh, zh);
-  return l;
-}
-
-// f_{|x|,Q}(P), conjugated for x < 0; one where skip
-BLS_FN fp12 miller_loop(const fp& xp, const fp& yp, const fp2& xq,
-                        const fp2& yq, bool skip) {
-  if (skip) return fp12_one();
-  pt<fp2> T;
-  T.x = xq;
-  T.y = yq;
-  T.z = fp2_one();
-  fp12 f = fp12_one();
-  for (int i = 62; i >= 0; --i) {
-    const line ld = miller_double(T, xp, yp);
-    f = fp12_mul(fp12_sqr(f), line_fp12(ld));
-    if ((BLS_X_ABS >> i) & 1ull) {
-      const line la = miller_add(T, xq, yq, xp, yp);
-      f = fp12_mul(f, line_fp12(la));
-    }
-  }
-  return fp12_conj(f);
-}
-
-// m^x for unitary m (x < 0): cyclotomic square-and-multiply by |x|, then
-// conjugate
-BLS_CALL fp12 exp_by_neg_x(const fp12& m) {
-  fp12 acc = m;
-  for (int i = 62; i >= 0; --i) {
-    acc = fp12_cyc_sqr(acc);
-    if ((BLS_X_ABS >> i) & 1ull) acc = fp12_mul(acc, m);
-  }
-  return fp12_conj(acc);
-}
-
-// f^(3 (q^12 - 1) / r): the easy part f^((q^6 - 1)(q^2 + 1)), then the
-// BLS12 x-chain hard part in the reference's order
-BLS_FN fp12 final_exponentiation(const fp12& f) {
-  const fp12 f1 = fp12_mul(fp12_conj(f), fp12_inv(f));
-  const fp12 m = fp12_mul(fp12_frob_n(f1, 2), f1);
-  const fp12 t2 = m;
-  fp12 t1 = fp12_conj(fp12_cyc_sqr(t2));
-  fp12 t3 = exp_by_neg_x(t2);
-  fp12 t4 = fp12_cyc_sqr(t3);
-  fp12 t5 = fp12_mul(t1, t3);
-  t1 = exp_by_neg_x(t5);
-  const fp12 t0 = exp_by_neg_x(t1);
-  fp12 t6 = exp_by_neg_x(t0);
-  t6 = fp12_mul(t6, t4);
-  t4 = exp_by_neg_x(t6);
-  t5 = fp12_conj(t5);
-  t4 = fp12_mul(fp12_mul(t4, t5), t2);
-  t5 = fp12_conj(t2);
-  t1 = fp12_mul(t1, t2);
-  t1 = fp12_frob_n(t1, 3);
-  t6 = fp12_mul(t6, t5);
-  t6 = fp12_frob(t6);
-  t3 = fp12_mul(t3, t0);
-  t3 = fp12_frob_n(t3, 2);
-  t3 = fp12_mul(t3, t1);
-  t3 = fp12_mul(t3, t6);
-  return fp12_mul(t3, t4);
-}
-
-// ---------------------------------------------------------------------------
 // element access: the kernels' tensors are flat uint32 words in the
 // struct layouts above (fp 12, fp2 24, fp12 144, G1 point 36, G2 point 72)
 // ---------------------------------------------------------------------------
@@ -713,7 +560,7 @@ BLS_FN void bls_store(uint32_t* dst, const T& v) {
 }
 
 // ---------------------------------------------------------------------------
-// per-element bodies of the three kernels (the host build calls the same)
+// per-element bodies of the kernels (the host build calls the same)
 // ---------------------------------------------------------------------------
 
 // bls381_field.cu's op codes, in the order of ops/bls381_cuda.py FIELD_OPS
@@ -789,27 +636,6 @@ BLS_FN void field_op_elem(int op, const uint32_t* a, const uint32_t* b,
 BLS_FN void g2_ladder_elem(const uint32_t* p, const uint8_t* bits,
                            int64_t nbits, uint32_t* out) {
   bls_store(out, pt_ladder(bls_load<pt<fp2>>(p), bits, nbits));
-}
-
-// launch 1 for one pair: g1 = (xp, yp) 24 words, g2 = (xq, yq) 48 words,
-// f 144 words
-BLS_FN void miller_elem(const uint32_t* g1, const uint32_t* g2, uint8_t skip,
-                        uint32_t* f) {
-  bls_store(f, miller_loop(bls_load<fp>(g1), bls_load<fp>(g1 + BLS_NW),
-                           bls_load<fp2>(g2), bls_load<fp2>(g2 + 2 * BLS_NW),
-                           skip != 0));
-}
-
-// launch 2 for one job: the product of its k Miller values (f, 144 words
-// each), written to prod; with do_final, ok = (final exponentiation of the
-// product == 1)
-BLS_FN void final_elem(const uint32_t* f, int64_t k, int do_final,
-                       uint32_t* prod, uint8_t* ok) {
-  fp12 acc = bls_load<fp12>(f);
-  for (int64_t i = 1; i < k; ++i)
-    acc = fp12_mul(acc, bls_load<fp12>(f + i * 12 * BLS_NW));
-  bls_store(prod, acc);
-  if (do_final) *ok = fp12_is_one(final_exponentiation(acc)) ? 1 : 0;
 }
 
 // the ladder for one G1 point: p and out hold 36 words a point

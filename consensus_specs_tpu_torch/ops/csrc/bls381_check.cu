@@ -6,9 +6,9 @@
 //
 // Replaces consensus_specs_tpu/ops/pairing_jax.py `pairing_check` in its
 // fused form `_pairing_check_fused` (`_miller_scan`, `_easy_part`,
-// `_hard_chain`) where bls381_pairing.cu ran it as two launches with one
-// thread a pair (launch 1) and one thread a job (launch 2).  The product
-// before the final exponentiation equals launch 2's bit for bit
+// `_hard_chain`) on the check-by-check path, where the pairing's two
+// launches (below) serve the signature flush.  The product before the
+// final exponentiation equals the pairing's launch 2's bit for bit
 // (bls381_check.cuh says why), and the verdict is the same.
 //
 // What bounds it: operations, the CIOS products' 32-bit multiplies, and
@@ -36,8 +36,13 @@
 // [b, k, 2, 12] (xp, yp), g2 [b, k, 2, 2, 12] (xq, yq) affine, skip uint8
 // [b, k]; tq [b, k, 72] is scratch for the twist points; writes prod
 // [b, 12, 12] and ok uint8 [b].
+//
+// This file also holds the kernels and C entries of the pairing's two
+// launches (bodies and design in bls381_pairing.cuh), which
+// run the same levels: bls381_check.cuh defines the levels' gate, so the
+// library holds one translation unit that includes it.
 
-#include "bls381_check.cuh"
+#include "bls381_pairing.cuh"
 
 namespace {
 
@@ -58,6 +63,30 @@ bls381_check_kernel(const uint32_t* __restrict__ g1,
   check_job(&s, j, prod + job * RQ12_W, ok + job);
 }
 
+// the pairing's launch 1: a block a pair
+__global__ void __launch_bounds__(CHECK_LANES)
+bls381_miller_kernel(const uint32_t* __restrict__ g1,
+                     const uint32_t* __restrict__ g2,
+                     const uint8_t* __restrict__ skip,
+                     uint32_t* __restrict__ f) {
+  __shared__ check_smem s;
+  __shared__ uint32_t tq[RG2_W];
+  const int64_t i = blockIdx.x;
+  miller_pair(&s, tq, g1 + i * 2 * RQ_W, g2 + i * 2 * RQ2_W, skip + i,
+              f + i * RQ12_W);
+}
+
+// the pairing's launch 2: a block a job
+__global__ void __launch_bounds__(CHECK_LANES)
+bls381_final_kernel(const uint32_t* __restrict__ f, int64_t k, int do_final,
+                    uint32_t* __restrict__ prod, uint8_t* __restrict__ ok) {
+  __shared__ check_smem s;
+  __shared__ mul_smem m1;
+  const int64_t job = blockIdx.x;
+  product_final_job(&s, &m1, f + job * k * RQ12_W, k, do_final,
+                    prod + job * RQ12_W, ok + job);
+}
+
 }  // namespace
 
 // Plain C entry: b jobs of k >= 1 pairs, one block of four warps a job.
@@ -72,6 +101,36 @@ extern "C" int bls381_pairing_check_launch(const void* g1, const void* g2,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(g1), static_cast<const uint32_t*>(g2),
         static_cast<const uint8_t*>(skip), static_cast<uint32_t*>(tq), k,
+        static_cast<uint32_t*>(prod), static_cast<uint8_t*>(ok));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry of the pairing's launch 1: n pairs, a block each.  Launches
+// on `stream` and returns cudaGetLastError() as an int.
+extern "C" int bls381_miller_launch(const void* g1, const void* g2,
+                                    const void* skip, void* f, int64_t n,
+                                    void* stream) {
+  if (n > 0) {
+    bls381_miller_kernel<<<static_cast<unsigned int>(n), CHECK_LANES, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(g1), static_cast<const uint32_t*>(g2),
+        static_cast<const uint8_t*>(skip), static_cast<uint32_t*>(f));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry of the pairing's launch 2: b jobs of k >= 1 Miller values
+// each, a block each.  `ok` is written only when do_final is nonzero.
+// Launches on `stream` and returns cudaGetLastError() as an int.
+extern "C" int bls381_final_launch(const void* f, int64_t k, int do_final,
+                                   void* prod, void* ok, int64_t b,
+                                   void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b > 0) {
+    bls381_final_kernel<<<static_cast<unsigned int>(b), CHECK_LANES, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(f), k, do_final,
         static_cast<uint32_t*>(prod), static_cast<uint8_t*>(ok));
   }
   return static_cast<int>(cudaGetLastError());

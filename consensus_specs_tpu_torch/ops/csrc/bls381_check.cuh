@@ -42,11 +42,15 @@
 // The Miller loop keeps one accumulator for the job: f <- f^2 prod_i l_i
 // over the live pairs of each bit, conjugated once at the end (x < 0).  Fq12
 // is commutative and conjugation is a ring automorphism, so f equals the
-// product of the per-pair Miller values that bls381_pairing.cu launch 1
-// computes and launch 2 multiplies, as a field element and so bit for bit.
-// The lines and the twist points follow bls381.cuh miller_double /
-// miller_add formula for formula (their values set the product); the final
-// exponentiation follows final_exponentiation's chain.
+// product of the per-pair Miller values, as a field element and so bit for
+// bit.  The job is three parts, `check_miller`, the store and
+// `check_final`; the pairing's two launches run the same parts (a pair's
+// Miller value at k = 1 a block, then a job's product and final
+// exponentiation, bls381_pairing.cuh).  The lines and the twist points
+// follow the plain version's `_double_step` / `_add_step`
+// (ops/pairing_torch.py) formula for formula (their values set the
+// product); the final exponentiation follows its `_easy_part` and
+// `_hard_chain`.
 #pragma once
 
 #include "bls381_reg.cuh"
@@ -66,6 +70,9 @@
 // The cause is not known.  One hypothesis, from the SASS: ptxas treats the
 // level calls as warp-uniform and passes their pointers in uniform
 // registers; a per-lane test it cannot prove uniform keeps them per-lane.
+// The gate is defined here, so one translation unit of the library
+// includes this header: bls381_check.cu, which holds the check's kernel and
+// the pairing's two.
 __device__ int bls_level_gate[CHECK_LANES];
 #define BLS_LEVEL(call)                                                    \
   do {                                                                     \
@@ -108,11 +115,16 @@ enum MillerTmp {
 enum CheckSlot { CS_F, CS_T0, CS_T1, CS_T2, CS_T3, CS_T4, CS_T5, CS_T6,
                  CS_COUNT };
 
+// an Fq12 product's intermediates between its three levels
+struct mul_smem {
+  uint32_t parts[18][3][RQ_W];               // its Fq parts
+  uint32_t sums[9][RQ2_W];                   // its Fq6 coefficients
+};
+
 struct check_smem {
   uint32_t w[CS_COUNT][RQ12_W];              // Fq12 slots
   uint32_t cyc[9][RQ2_W];                    // a cyclotomic square's squares
-  uint32_t parts[18][3][RQ_W];               // an Fq12 product's Fq parts
-  uint32_t sums[9][RQ2_W];                   // Fq6 coefficients (product)
+  mul_smem mul;                              // an Fq12 product's levels
   uint32_t line[CHECK_CHUNK][RQ12_W];        // sparse lines as Fq12
   uint32_t tmp[CHECK_CHUNK][CHECK_TMP][RQ2_W];
   uint32_t mparts[CHECK_CHUNK][CHECK_MP][3][RQ_W];   // Karatsuba parts
@@ -152,7 +164,7 @@ BLS_FN void kara_operand(uint32_t* out, const uint32_t* a, int m, int t) {
 // of Fq2 product P = 6 m + t (Karatsuba: x0 y0, x1 y1, (x0 + x1)(y0 + y1)),
 // rebuilt where it is read (kara_fq2).  Lanes 54..63 repeat lanes 0..9 and
 // store nothing; the product is inline, so the level calls nothing.
-BLS_CALL void lvl_mul_products(int lane, check_smem* s, const uint32_t* a,
+BLS_CALL void lvl_mul_products(int lane, mul_smem* s, const uint32_t* a,
                                const uint32_t* b) {
   const int l = lane % 54, P = l / 3, part = l % 3;
   uint32_t x[RQ2_W], y[RQ2_W], u[RQ_W], v[RQ_W];
@@ -180,7 +192,7 @@ BLS_FN void kara_fq2(uint32_t* out, const uint32_t (*v)[RQ_W]) {
 // level 2: lane = 2 (3 m + j) + c, 18 lanes: component c of coefficient j
 // of Fq6 product m, from its six products p: c0 = p0 + XI (p5 - p1 - p2),
 // c1 = p3 - p0 - p1 + XI p2, c2 = p4 - p0 - p2 + p1
-BLS_CALL void lvl_mul_sums(int lane, check_smem* s) {
+BLS_CALL void lvl_mul_sums(int lane, mul_smem* s) {
   if (lane >= 18) return;
   const int m = lane / 6, j = (lane / 2) % 3, o = (lane & 1) * RQ_W;
   uint32_t p[6][RQ2_W];
@@ -210,7 +222,7 @@ BLS_CALL void lvl_mul_sums(int lane, check_smem* s) {
 
 // level 3: lane = 2 o + c, 12 lanes: component c of output coefficient o;
 // r.c0 = V0 + v V1 (v V1 = (XI V1.c2, V1.c0, V1.c1)), r.c1 = V2 - V0 - V1
-BLS_CALL void lvl_mul_out(int lane, check_smem* s, uint32_t* r) {
+BLS_CALL void lvl_mul_out(int lane, mul_smem* s, uint32_t* r) {
   if (lane >= 12) return;
   const int o = lane / 2, c = lane & 1;
   uint32_t(*V)[RQ2_W] = s->sums;       // V[3 m + j]
@@ -445,7 +457,7 @@ BLS_FN int64_t chunk_pair(const check_job_args& j, int64_t c, int slot) {
   return (slot < CHECK_CHUNK && p < j.k && !j.skip[p]) ? p : -1;
 }
 
-// the tangent at T, scaled by w^3 and 2 Y Z^3 (miller_double):
+// the tangent at T, scaled by w^3 and 2 Y Z^3 (`_double_step`):
 // c0 = 3X^3 - 2Y^2, c1 = -3X^2 Z^2 xp, c4 = 2 Y Z^3 yp; then T <- 2T
 // The doubling step at Fq granularity: every lane computes one Fq product
 // of one pair's step, inline (the levels call nothing).  A square x^2 is
@@ -645,7 +657,7 @@ BLS_CALL void lvl_dbl4(int lane, check_smem* s, check_job_args j,
 }
 
 // the line through T and the affine Q = (x2, y2) at P, scaled by Z1 lam
-// (miller_add): theta = Y1 - y2 Z1^3, lam = X1 - x2 Z1^2, c0 = theta x2 -
+// (`_add_step`): theta = Y1 - y2 Z1^3, lam = X1 - x2 Z1^2, c0 = theta x2 -
 // y2 Z1 lam, c1 = -theta xp, c4 = Z1 lam yp; then T <- T + Q
 // (madd-2007-bl)
 BLS_CALL void lvl_add1(int lane, check_smem* s, check_job_args j,
@@ -835,9 +847,9 @@ BLS_CALL void lvl_is_one(int lane, const uint32_t* f, uint8_t* ok) {
 
 BLS_CALL void w_mul(check_smem* s, uint32_t* r, const uint32_t* a,
                     const uint32_t* b) {
-  BLS_LEVEL(lvl_mul_products(lane, s, a, b));
-  BLS_LEVEL(lvl_mul_sums(lane, s));
-  BLS_LEVEL(lvl_mul_out(lane, s, r));
+  BLS_LEVEL(lvl_mul_products(lane, &s->mul, a, b));
+  BLS_LEVEL(lvl_mul_sums(lane, &s->mul));
+  BLS_LEVEL(lvl_mul_out(lane, &s->mul, r));
 }
 
 BLS_CALL void w_cyc(check_smem* s, uint32_t* r, const uint32_t* a) {
@@ -861,18 +873,18 @@ BLS_CALL void w_exp_by_neg_x(check_smem* s, uint32_t* r, const uint32_t* m) {
 // warp diverges across the calls
 BLS_CALL void lvl_sqr1_dbl1(int lane, check_smem* s, const uint32_t* f,
                             check_job_args j) {
-  if (lane < CHECK_HALF) lvl_mul_products(lane, s, f, f);
+  if (lane < CHECK_HALF) lvl_mul_products(lane, &s->mul, f, f);
   else lvl_dbl1(lane - CHECK_HALF, s, j, 0);
 }
 
 BLS_CALL void lvl_sqr2_dbl2(int lane, check_smem* s, check_job_args j) {
-  if (lane < CHECK_HALF) lvl_mul_sums(lane, s);
+  if (lane < CHECK_HALF) lvl_mul_sums(lane, &s->mul);
   else lvl_dbl2(lane - CHECK_HALF, s, j, 0);
 }
 
 BLS_CALL void lvl_sqr3_dbl3(int lane, check_smem* s, uint32_t* f,
                             check_job_args j) {
-  if (lane < CHECK_HALF) lvl_mul_out(lane, s, f);
+  if (lane < CHECK_HALF) lvl_mul_out(lane, &s->mul, f);
   else lvl_dbl3(lane - CHECK_HALF, s, j, 0);
 }
 
@@ -883,11 +895,10 @@ BLS_FN void w_mul_lines(check_smem* s, const check_job_args& j, int64_t c) {
       w_mul(s, s->w[CS_F], s->w[CS_F], s->line[slot]);
 }
 
-// One job: writes the product of its Miller values (conjugated, before the
-// final exponentiation) to prod (144 words) and the verdict to ok.  Every
-// lane of the warp calls it; its control flow is uniform across the warp.
-BLS_FN void check_job(check_smem* s, check_job_args j, uint32_t* prod,
-                      uint8_t* ok) {
+// The Miller loop of the job's pairs into s->w[CS_F]: the product of
+// their Miller values, conjugated (x < 0).  Every lane of the block calls
+// it; its control flow is uniform across the block.
+BLS_FN void check_miller(check_smem* s, check_job_args j) {
   uint32_t* f = s->w[CS_F];
   BLS_LEVEL(lvl_init(lane, s, j));
   for (int i = 62; i >= 0; --i) {
@@ -916,16 +927,20 @@ BLS_FN void check_job(check_smem* s, check_job_args j, uint32_t* prod,
     }
   }
   BLS_LEVEL(lvl_conj(lane, f, f, true));
-  BLS_LEVEL(lvl_store(lane, f, prod));
+}
 
-  // the easy part: m = f1^(q^2) f1, f1 = conj(f) f^-1
+// The final exponentiation of s->w[CS_F] (which it keeps) and the verdict:
+// ok = 1 when the value is one, else 0.  Block-uniform like check_miller.
+BLS_FN void check_final(check_smem* s, uint8_t* ok) {
   uint32_t(*w)[RQ12_W] = s->w;
+  const uint32_t* f = w[CS_F];
+  // the easy part: m = f1^(q^2) f1, f1 = conj(f) f^-1
   BLS_LEVEL(lvl_inv(lane, w[CS_T1], f));
   BLS_LEVEL(lvl_conj(lane, w[CS_T0], f, true));
   w_mul(s, w[CS_T3], w[CS_T0], w[CS_T1]);
   BLS_LEVEL(lvl_frob(lane, w[CS_T0], w[CS_T3], 2));
   w_mul(s, w[CS_T2], w[CS_T0], w[CS_T3]);
-  // the hard part, final_exponentiation's chain (t2 = m)
+  // the hard part, `_hard_chain`'s order (t2 = m)
   w_cyc(s, w[CS_T1], w[CS_T2]);
   BLS_LEVEL(lvl_conj(lane, w[CS_T1], w[CS_T1], true));   // t1 = m^-2
   w_exp_by_neg_x(s, w[CS_T3], w[CS_T2]);                 // t3 = m^x
@@ -950,4 +965,13 @@ BLS_FN void check_job(check_smem* s, check_job_args j, uint32_t* prod,
   w_mul(s, w[CS_T3], w[CS_T3], w[CS_T6]);
   w_mul(s, w[CS_T3], w[CS_T3], w[CS_T4]);
   BLS_LEVEL(lvl_is_one(lane, w[CS_T3], ok));
+}
+
+// One job: writes the product of its Miller values (conjugated, before the
+// final exponentiation) to prod (144 words) and the verdict to ok.
+BLS_FN void check_job(check_smem* s, check_job_args j, uint32_t* prod,
+                      uint8_t* ok) {
+  check_miller(s, j);
+  BLS_LEVEL(lvl_store(lane, s->w[CS_F], prod));
+  check_final(s, ok);
 }

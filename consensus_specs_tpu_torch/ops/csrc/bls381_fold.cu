@@ -15,7 +15,7 @@
 //     segment), then fold_tail: one thread writes the last pair (-G1,
 //     affine S), skipped when S is infinity.
 //
-// The k + 1 pairs then go through bls381_pairing.cu's Miller launch and
+// The k + 1 pairs then go through the pairing's Miller launch and
 // its product launch without the final exponentiation: the flush's
 // partial Fq12 product, whose final exponentiation decides the flush.
 //

@@ -1,7 +1,7 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
-// epoch_sweep.cu, bls381_pairing.cu, bls381_g2.cu, bls381_field.cu,
-// bls381_msm.cu, bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu,
-// bls381_pippenger.cu), for
+// epoch_sweep.cu, bls381_g2.cu, bls381_field.cu, bls381_msm.cu,
+// bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu with the pairing's
+// two launches, bls381_pippenger.cu), for
 // torch.utils.cpp_extension.load.  The one file of the port that includes
 // PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
 // ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
@@ -116,7 +116,8 @@ void bls381_ladder(const torch::Tensor& pts, const torch::Tensor& bits,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// Launch 1 of the pairing check: n Miller loops (bls381_pairing.cu).
+// Launch 1 of the pairing: n Miller loops, a block each (bls381_check.cu,
+// bodies in bls381_pairing.cuh).
 void bls381_miller(const torch::Tensor& g1, const torch::Tensor& g2,
                    const torch::Tensor& skip, torch::Tensor f, int64_t n) {
   const c10::cuda::CUDAGuard guard(g1.device());
@@ -126,8 +127,8 @@ void bls381_miller(const torch::Tensor& g1, const torch::Tensor& g2,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// Launch 2: b jobs' products of k Miller values, and their final
-// exponentiation's is-one when do_final (bls381_pairing.cu).
+// Launch 2: b jobs' products of k Miller values, a block each, and their
+// final exponentiation's is-one when do_final (bls381_check.cu).
 void bls381_final(const torch::Tensor& f, int64_t k, bool do_final,
                   torch::Tensor prod, torch::Tensor ok, int64_t b) {
   const c10::cuda::CUDAGuard guard(f.device());

@@ -32,9 +32,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 KERNEL_SOURCES = tuple(os.path.join(CSRC, name) for name in (
     "sha256_pairs.cu", "sha256_gather.cu", "epoch_sweep.cu",
-    "bls381_pairing.cu", "bls381_g2.cu", "bls381_field.cu", "bls381_msm.cu",
-    "bls381_fold.cu", "bls381_cofactor.cu", "bls381_check.cu",
-    "bls381_pippenger.cu"))
+    "bls381_g2.cu", "bls381_field.cu", "bls381_msm.cu", "bls381_fold.cu",
+    "bls381_cofactor.cu", "bls381_check.cu", "bls381_pippenger.cu"))
 BINDING_SOURCE = os.path.join(CSRC, "kernels_bind.cpp")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -218,6 +217,7 @@ def _build_ctypes():
             _check("bls381_pairing (final exponentiation)", final_fn(
                 f.data_ptr(), k, int(do_final), prod.data_ptr(),
                 ok.data_ptr(), b, stream_of(f)))
+
     def segment_sum(g2, buf, length, out, segments):
         with torch.cuda.device(buf.device):
             _check("bls381_msm (segment sum)", segment_fn(

@@ -18,8 +18,10 @@ result).
 `fold_partial_products` are the entry points.  They go through
 ops/bls381_cuda.py, which on CUDA tensors launches ops/csrc/bls381_check.cu
 for `pairing_check` (one launch, four warps a job; plain version
-`check_plain`) and ops/csrc/bls381_pairing.cu for the others (launch 1: a
-Miller loop a pair; launch 2: a job's product and final exponentiation),
+`check_plain`) and the pairing's two launches for the others (launch 1: a
+pair's Miller loop, four warps a pair; launch 2: a job's product and final
+exponentiation, four warps a job; both in the same file, on the check's
+levels, bodies ops/csrc/bls381_pairing.cuh),
 for the fold first ops/csrc/bls381_fold.cu with a segment sum of
 ops/csrc/bls381_msm.cu, and runs the plain functions here on CPU
 tensors.  The reference's chunked mode, row buckets and `warmup` are XLA

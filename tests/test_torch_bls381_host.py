@@ -2,26 +2,27 @@
 plain torch version.
 
 `ops/csrc/bls381.cuh` compiles without `__CUDACC__` as plain C++: the same
-CIOS products, tower, point formulas, Miller steps and final
-exponentiation that `bls381_field.cu`, `bls381_g2.cu` and
-`bls381_pairing.cu`, `bls381_msm.cu` and `bls381_fold.cu` run on the
-card.  This test builds a small shared library from it with the host's C++
+CIOS products, tower and point formulas that `bls381_field.cu`,
+`bls381_g2.cu`, `bls381_msm.cu` and `bls381_fold.cu` run on the card.
+This test builds a small shared library from it with the host's C++
 compiler, loops the kernels' per-element bodies (`field_op_elem`,
 `g2_ladder_elem`, `g1_ladder_elem`, `segment_step_elem` in the segment-sum
 kernel's rounds, the fold's legs `fold_w_elem`, `cofactor_elem` then
 `fold_h_elem` and `fold_sw_elem` (`bls381_fold.cuh`) and `fold_tail_elem`
-around a segment sum, `miller_elem`, `final_elem`) over seeded inputs, and holds every
-output against the plain version (`bls381_cuda.FIELD_OPS`,
-`curve_torch.point_scalar_mul`, `bls381_cuda.halving_sum`,
-`pairing_torch._fold_lanes_plain`; the pairing launches in
-tests/test_torch_pairing.py, on the Miller values its fixture computed) bit
-for bit, so the kernels' arithmetic is checked on every run of the tests,
-not only on the card.  The redesigned kernels' bodies come from
-`bls381_reg.cuh` and `bls381_check.cuh`, the same sources as
-`bls381_cofactor.cu` and `bls381_check.cu`: `cofactor_elem` a point (also
-the fold's cofactor leg), and `check_job`, whose warp levels run for lanes
-0..31 in turn here (the portable product stands in for the PTX carry
-chains).  The Pippenger MSM's five launches come from
+around a segment sum) over seeded inputs, and holds every output against
+the plain version (`bls381_cuda.FIELD_OPS`, `curve_torch.point_scalar_mul`,
+`bls381_cuda.halving_sum`, `pairing_torch._fold_lanes_plain`) bit for bit,
+so the kernels' arithmetic is checked on every run of the tests, not only
+on the card.  The redesigned kernels' bodies come from `bls381_reg.cuh`,
+`bls381_check.cuh` and `bls381_pairing.cuh`, the same sources as
+`bls381_cofactor.cu` and `bls381_check.cu` (which also holds the pairing's
+two launches): `cofactor_elem` a point (also the fold's cofactor leg),
+`check_job`, and the two pairing launches' `miller_pair` (a pair's block)
+and `product_final_job` (a job's product and final exponentiation),
+whose warp levels run for lanes 0..127 in turn here (the portable product
+stands in for the PTX carry chains), held against
+`pairing_torch.miller_loop` and `product_final` (also in
+tests/test_torch_pairing.py, on the Miller values its fixture computed).  The Pippenger MSM's five launches come from
 `bls381_pippenger.cuh`, the source of `bls381_pippenger.cu`, instantiated
 at 4-bit windows and chunks of 4 points and at the kernel's 8-bit windows
 and chunks of 16; their result's compressed bytes are held against
@@ -38,6 +39,7 @@ import random
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +56,7 @@ SEED = 2026
 N = 4
 
 HARNESS = r"""
-#include "bls381_check.cuh"
+#include "bls381_pairing.cuh"
 #include "bls381_fold.cuh"
 #include "bls381_pippenger.cuh"
 #include <stdlib.h>
@@ -111,15 +113,26 @@ extern "C" void fold(const uint32_t* agg, const uint8_t* cbits, int64_t nc,
   segment_sum(1, sw, k, S, 1);
   fold_tail_elem(S, consts, g1 + k * 24, g2 + k * 48, skip + k);
 }
+// the pairing's launch 1, a pair after another, each level's lanes
+// in turn
 extern "C" void miller(const uint32_t* g1, const uint32_t* g2,
                        const uint8_t* skip, uint32_t* f, int64_t n) {
+  check_smem* s = (check_smem*)malloc(sizeof(check_smem));
+  uint32_t tq[72];
   for (int64_t i = 0; i < n; ++i)
-    miller_elem(g1 + i * 24, g2 + i * 48, skip[i], f + i * 144);
+    miller_pair(s, tq, g1 + i * 24, g2 + i * 48, skip + i, f + i * 144);
+  free(s);
 }
+// its launch 2, a job after another
 extern "C" void final(const uint32_t* f, int64_t k, int do_final,
                       uint32_t* prod, uint8_t* ok, int64_t b) {
+  check_smem* s = (check_smem*)malloc(sizeof(check_smem));
+  mul_smem* m1 = (mul_smem*)malloc(sizeof(mul_smem));
   for (int64_t j = 0; j < b; ++j)
-    final_elem(f + j * k * 144, k, do_final, prod + j * 144, ok + j);
+    product_final_job(s, m1, f + j * k * 144, k, do_final, prod + j * 144,
+                      ok + j);
+  free(m1);
+  free(s);
 }
 // bls381_reg.cuh's Fq product and binary-GCD inverse, an element each
 extern "C" void reg_mul_inv(const uint32_t* a, const uint32_t* b,
@@ -451,14 +464,9 @@ def _check_jobs(case):
     return [(pairs, [False, False, False, True, False])], [True]
 
 
-@pytest.mark.parametrize("case", ["b2k2", "k5"])
-def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
-    """bls381_check.cu's warp levels, each run for lanes 0..31 in turn:
-    the product of the job's Miller values before the final
-    exponentiation and the verdict, against `pairing_torch.miller_loop`
-    and `product_final` and against the plain version `check_plain`."""
-    jobs, expected = _check_jobs(case)
-    b, k = len(jobs), len(jobs[0][0])
+def _pack_pairs(jobs):
+    """The pairs of `jobs` flattened: (xp, yp, xq, yq, skip) limbs and the
+    kernels' words g1w [n, 2, 12], g2w [n, 2, 2, 12], skip8 uint8 [n]."""
     xs1, ys1, xs2, ys2, skips = [], [], [], [], []
     for pairs, skip in jobs:
         for (p, q), s in zip(pairs, skip):
@@ -471,9 +479,20 @@ def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
     xp, yp = fq.pack_mont(xs1), fq.pack_mont(ys1)
     xq, yq = ft.fq2_pack_mont(xs2), ft.fq2_pack_mont(ys2)
     skip = torch.tensor(skips)
-    g1w = _words(torch.stack([xp, yp], 1))
-    g2w = _words(torch.stack([xq, yq], 1))
-    skip8 = skip.to(torch.uint8).contiguous()
+    return (xp, yp, xq, yq, skip, _words(torch.stack([xp, yp], 1)),
+            _words(torch.stack([xq, yq], 1)),
+            skip.to(torch.uint8).contiguous())
+
+
+@pytest.mark.parametrize("case", ["b2k2", "k5"])
+def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
+    """bls381_check.cu's warp levels, each run for lanes 0..127 in turn:
+    the product of the job's Miller values before the final
+    exponentiation and the verdict, against `pairing_torch.miller_loop`
+    and `product_final` and against the plain version `check_plain`."""
+    jobs, expected = _check_jobs(case)
+    b, k = len(jobs), len(jobs[0][0])
+    xp, yp, xq, yq, skip, g1w, g2w, skip8 = _pack_pairs(jobs)
     tq = torch.empty((b * k, 72), dtype=torch.int32)
     prod = torch.empty((b, 12, 12), dtype=torch.int32)
     ok = torch.zeros(b, dtype=torch.uint8)
@@ -489,6 +508,62 @@ def test_check_job_levels_equal_miller_and_product_final(host_lib, case):
         xq.reshape(b, k, 2, 32), yq.reshape(b, k, 2, 32), skip.reshape(b, k))
     assert torch.equal(plain_prod, want_prod)
     assert plain_ok.tolist() == expected
+
+
+@pytest.mark.parametrize("case", ["b2k2", "k5"])
+def test_pairing_miller_bodies_equal_miller_loop(host_lib, case):
+    """The pairing's launch 1, a pair's block of levels at k = 1
+    (each level's lanes in turn), on the check's pairs (skipped pairs
+    among them): the Miller values equal `pairing_torch.miller_loop`'s bit
+    for bit, one where skipped."""
+    jobs, _expected = _check_jobs(case)
+    xp, yp, xq, yq, skip, g1w, g2w, skip8 = _pack_pairs(jobs)
+    n = xp.shape[0]
+    f = torch.empty((n, 12, 12), dtype=torch.int32)
+    host_lib.miller(g1w.data_ptr(), g2w.data_ptr(), skip8.data_ptr(),
+                    f.data_ptr(), n)
+    got = fq.from_words(f)
+    assert torch.equal(got, pairing_torch.miller_loop(xp, yp, xq, yq, skip))
+    one = ft.fq12_one()
+    assert [torch.equal(v, one) for v in got] == skip.tolist()
+
+
+def _fq12_values(b, k):
+    """b jobs of k numpy-seeded canonical Fq12 values, [b, k, 12, 32]
+    Montgomery limbs; at k = 3 job 0's last value is the inverse of the
+    product of its first two, so that job's product is one."""
+    rng = np.random.default_rng([SEED, 15, b, k])
+    words = rng.integers(0, 2**32, size=(b * k * 12, 12), dtype=np.uint64)
+    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % Q
+            for row in words]
+    f = fq.pack_mont(vals).reshape(b, k, 12, fq.LIMBS)
+    if k == 3:
+        f[0, 2] = ft.fq12_inv(ft.fq12_mul(f[0, 0], f[0, 1]))
+    return f
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["product", "final"])
+@pytest.mark.parametrize("b, k", [(1, 1), (2, 3), (1, 17)])
+def test_pairing_product_final_bodies_equal_product_final(host_lib, b, k,
+                                                          final):
+    """The pairing's launch 2, a job's block of levels (each level's
+    lanes in turn): the two running products (two products a pass; at an
+    odd k the last value goes to the first alone) and, with `final`, the final
+    exponentiation and verdict, against `pairing_torch.product_final` bit
+    for bit.  Job 0 at k = 3 multiplies to one (verdict True)."""
+    f = _fq12_values(b, k)
+    words = _words(f)
+    prod = torch.empty((b, 12, 12), dtype=torch.int32)
+    ok = torch.full((b,), 7, dtype=torch.uint8)
+    host_lib.final(words.data_ptr(), k, int(final), prod.data_ptr(),
+                   ok.data_ptr(), b)
+    want_prod, want_ok = pairing_torch.product_final(f, final)
+    assert torch.equal(fq.from_words(prod), want_prod)
+    if not final:
+        assert want_ok is None and ok.tolist() == [7] * b
+        return
+    assert ok.tolist() == [int(v) for v in want_ok]
+    assert want_ok.tolist() == [k == 3] + [False] * (b - 1)
 
 
 def _msm_rows(n, w_bits):

@@ -121,9 +121,10 @@ def test_partial_products_and_product_is_one_split_the_check(checked):
 
 def test_kernel_device_functions_equal_the_plain_version(checked,
                                                         host_lib):  # noqa: F811
-    """bls381_pairing.cu's per-pair and per-job bodies, compiled as host
-    C++ (tests/test_torch_bls381_host.py), on the same inputs: Miller
-    values, products and verdicts bit for bit."""
+    """The pairing launches' per-pair and per-job bodies (the four-warp
+    levels of bls381_pairing.cuh), compiled as host C++
+    (tests/test_torch_bls381_host.py), on the same inputs: Miller values,
+    products and verdicts bit for bit."""
     names, _jobs, args, f, prod, ok = checked
     b = len(names)
     xp, yp, xq, yq, skip = (a.reshape((2 * b,) + a.shape[2:]) for a in args)
