@@ -73,12 +73,15 @@ version:
 11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128 and 64
    ragged segments up to 2,048, G2 at one segment of 1,024), the G1 ladder
    (1,024 and 16,384 lanes of 64 bits, the larger on a seeded sample of
-   1,024 rows) and the fold kernels (a set's three legs as three kernels
+   1,024 rows; 8 and 1,024 rows split by GLV, the split's edge scalars
+   among them), the G2 ladder at the staged flush's 16 rows of 64 bits
+   and the fold kernels (a set's three legs as three kernels
    on three streams, its cofactor by the psi kernel) with the Miller
    product after it (k = 16 from 14 sets and 256, valid and with one bad
    set) against their plain torch versions on the card, bit for bit; at
    k = 1,024 the verdict and the 1,025 legs against the host's integers;
-   the times of the block's shapes from a CUDA graph; the pairing kernel's
+   the times of the block's shapes and of the blob verify's G1 ladder
+   (8 split rows) from a CUDA graph; the pairing kernel's
    launches alone at the flush's shapes (launch 1 over the block's 17 legs
    and a 256-set flush's 257, launch 2 over one job of as many values
    without the final exponentiation and over the block's partial product
@@ -118,6 +121,7 @@ Each phase prints its seconds.  The second-to-last line is a JSON object with
 one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero.  There is no CPU path.
 """
+import functools
 import hashlib
 import json
 import math
@@ -1610,7 +1614,7 @@ def bls_kernels_phase(n_sms, max_mhz):
     # call holds them all: the first LADDER_SIZES[1] rows and a sample
     pts = _ladder_points(LADDER_SIZES[-1])
     held = _hold_rows(LADDER_SIZES[-1], head=LADDER_SIZES[1])
-    want = curve_torch.point_scalar_mul(
+    want = curve_torch.windowed_ladder(
         curve_torch.F2, tuple(c[held] for c in pts),
         h_bits.expand(len(held), -1))
     for n in LADDER_SIZES:
@@ -1739,15 +1743,14 @@ def bls_kernels_phase(n_sms, max_mhz):
     pt = _ladder_points(1)
     bits = h_bits.expand(1, -1)
     check(_max_err(bls381_cuda.g2_ladder(pt, bits), curve_torch
-                   .point_scalar_mul(curve_torch.F2, pt, bits)) == 0,
+                   .windowed_ladder(curve_torch.F2, pt, bits)) == 0,
           "bls381_g2 at the main path's shape")
-    ones = int(bls_cuda._H_EFF_BITS.sum()) - 1      # the first add is free
-    ladder_products = len(bls_cuda._H_EFF_BITS) * G2_DOUBLE_PRODUCTS \
-        + ones * G2_ADD_PRODUCTS
+    ladder_products, ladder_chain = windowed_products(
+        len(bls_cuda._H_EFF_BITS), G2_DOUBLE_PRODUCTS, G2_ADD_PRODUCTS)
     times["bls381_g2"] = (
         graph_ms(lambda: bls381_cuda.g2_ladder(pt, bits), 5),
-        cuda_ms(lambda: curve_torch.point_scalar_mul(curve_torch.F2, pt,
-                                                     bits), 1),
+        cuda_ms(lambda: curve_torch.windowed_ladder(curve_torch.F2, pt,
+                                                    bits), 1, warmup=0),
         *op_bound(ladder_products,
                   (72 * 2 + len(bls_cuda._H_EFF_BITS) / 4) * 4,
                   n_sms, max_mhz))
@@ -1798,11 +1801,11 @@ def bls_kernels_phase(n_sms, max_mhz):
           f"version's counter; bls381_check {check_products}, its plain "
           f"version's counter with its Fq inverse counted as the binary "
           f"GCD's one product and its line products as sparse ones (its "
-          f"bound); the ladder {ladder_products}; "
-          f"dependent Fq product: "
+          f"bound); the h_eff ladder {ladder_products}, its dependent chain "
+          f"{ladder_chain}; dependent Fq product: "
           f"{times['bls381_cofactor'][0] * 1e6 / COFACTOR_PRODUCTS:.1f} ns "
           f"in bls381_cofactor (one thread), "
-          f"{times['bls381_g2'][0] * 1e6 / ladder_products:.1f} ns in the "
+          f"{times['bls381_g2'][0] * 1e6 / ladder_chain:.1f} ns in the "
           f"ladder")
     return max_err, times
 
@@ -2145,6 +2148,11 @@ K1_PLAIN_SEGMENTS = 8             # plain halving segments a call on the card
 K2_SIZES = (1024, 16384)
 K2_SAMPLE = 1024                  # rows of a larger K2 run the plain version holds
 K2_TIMED = 256                    # a full block's weighting sweep
+K2_BLOB = (6, 8)                  # the blob verify's lincomb: points, rows
+K2_SPLIT_SIZES = (K2_BLOB[1], 1024)   # K2's holds at split 256-bit rows
+# the GLV split's edge scalars (s0 or s1 at 0 or its top)
+GLV_EDGES = (0, 1, curve_torch.GLV_LAMBDA - 1, curve_torch.GLV_LAMBDA,
+             2**128, R - curve_torch.GLV_LAMBDA, R - 1)
 K4_SIZES = ((14, 16), (256, 256))  # (sets, lanes): the block's flush pads
 K4_ORACLE = 1024
 G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS = 7, 16
@@ -2164,7 +2172,55 @@ def ladder_products(bits, double, add):
                + np.maximum(ones - 1, 0).sum() * add)
 
 
+def windowed_products(nbits, double, add, split=False):
+    """(products, chain) of one live row of the windowed ladder
+    (csrc/bls381_ladder.cuh) over nbits bits (each half's on a split row),
+    with `double` and `add` Fq products a doubling and an add.  Products:
+    the table's w - 1 doublings and 2^(w-1) - 1 adds, then (m - 1) windows
+    of w doublings and an add and the even correction's add; a split row
+    runs two such chains beside the phi level's 2^(w-1) products and the
+    join.  Chain, the dependent part: the table's levels (a doubling, then
+    w - 1 adds), a lane's two phi products, one chain and the join."""
+    w = curve_torch.LADDER_W
+    m = max(1, -(-nbits // w))
+    one = (m - 1) * (w * double + add) + add
+    table = (w - 1) * double + ((1 << (w - 1)) - 1) * add
+    levels = double + (w - 1) * add
+    if split:
+        return (table + (1 << (w - 1)) + 2 * one + add,
+                levels + 2 + one + add)
+    return table + one, levels + one
+
+
+def _live_rows(pt, scalars):
+    """Rows of a ladder run whose work the bound counts: a point not at
+    infinity and a scalar not 0."""
+    inf = (pt[2].reshape(pt[2].shape[0], -1) == 0).all(dim=1).cpu()
+    return sum(1 for i, s in zip(inf.tolist(), scalars) if not i and s)
+
+
+def _blob_rows():
+    """K2's rows at the blob verify's shape: 6 seeded points of G1 with
+    seeded 255-bit scalars below r, padded to 8 with infinity and scalar
+    0, as `g1_multi_exp` pads them, split by GLV: (pt, bits [8, 2, 128],
+    scalars)."""
+    live, rows = K2_BLOB
+    pt = tuple(c[:, 0] for c in _segments(
+        "g1", [1] * live + [0] * (rows - live), 1))
+    rng = np.random.default_rng([SEED, 17])
+    scal = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(live)]
+    scal += [0] * (rows - live)
+    return pt, curve_torch.glv_bits(scal, CARD), scal
+
+
 def flush_case(n, bad=()):
+    """`_flush_case`, built once for each n and bad set (seconds of host
+    arithmetic at 256 and 1,024 sets)."""
+    return _flush_case(n, tuple(bad))
+
+
+@functools.lru_cache(maxsize=None)
+def _flush_case(n, bad):
     """n seeded signature sets of FLUSH_ROOTS roots: set i signs root
     i % 16 with the keys FLUSH_SK_BASE + ... (a committee of
     FLUSH_COMMITTEES[i % 4] consecutive keys, its signature Sign(sum of
@@ -2303,16 +2359,20 @@ def flush_kernels_phase(n_sms, max_mhz):
     bit for bit: K1 (segment sums) on G1 at a block's 8 x 128 and 64 ragged
     segments up to 2,048, on G2 at one segment of 1,024; K2 (the G1
     ladder) at 1,024 and 16,384 lanes of 64 bits (the larger on a seeded
-    sample of K2_SAMPLE rows); K4 (the fold's legs, with its K1 and its
-    tail) and the Miller product after it at k = 16 (14 sets and two
-    padded rows) and 256, valid and with one bad set.  At k = 1,024 the verdict and the 1,025 legs
-    against the host's integer arithmetic.  Then the times of the block's
-    shapes from a CUDA graph, beside the plain versions' and the
-    operation bounds (K4's with its cofactor counted by the psi method),
+    sample of K2_SAMPLE rows) and at K2_SPLIT_SIZES rows split by GLV
+    (the blob verify's 8, and 1,024 led by GLV_EDGES); the G2 ladder at
+    the staged flush's 16 rows of 64 bits, alone and with K1; K4 (the
+    fold's legs, with its K1 and its tail) and the Miller product after
+    it at k = 16 (14 sets and two padded rows) and 256, valid and with
+    one bad set.  At k = 1,024 the verdict and the 1,025 legs against the
+    host's integer arithmetic.  Then the times of the block's
+    shapes and of K2 at the blob verify's from a CUDA graph, beside the
+    plain versions' and the operation bounds (K4's with its cofactor
+    counted by the psi method, the ladders' by their windowed method),
     K4's longest leg, the cofactor kernel on the flush's hash points,
     alone, and the pairing kernel's launches (pairing_launches)."""
     max_err = {"bls381_segment_sum": 0, "bls381_g1_ladder": 0,
-               "bls381_fold": 0, "bls381_pairing": 0}
+               "bls381_fold": 0, "bls381_pairing": 0, "bls381_g2": 0}
     t0 = time.perf_counter()
     cases = {"G1 8 x 128": ("g1", [K1_BLOCK[1]] * K1_BLOCK[0],
                             K1_BLOCK[1])}
@@ -2338,10 +2398,11 @@ def flush_kernels_phase(n_sms, max_mhz):
               flush=True)
         segs[name] = pt
 
-    g1 = cv.g1_generator()
+    # the first K2_SIZES[0] rows' points, repeated: rows are independent,
+    # and building 16,384 distinct points on the host took 30-40 s
+    base = tuple(c[:, 0] for c in _segments("g1", [1] * K2_SIZES[0], 1))
     for n in K2_SIZES:
-        pts = _segments("g1", [1] * n, 1)
-        pt = tuple(c[:, 0] for c in pts)
+        pt = tuple(c.repeat(n // K2_SIZES[0], 1) for c in base)
         scal = [int(c) for c in np.random.default_rng([SEED, 12, n]).integers(
             0, 2**63, n, dtype=np.uint64) * 2 + 1]
         bits = curve_torch.scalars_to_bits(scal, 64, CARD)
@@ -2351,7 +2412,7 @@ def flush_kernels_phase(n_sms, max_mhz):
         rows = torch.arange(n, device=CARD) if n <= K2_SAMPLE else \
             torch.from_numpy(np.sort(np.random.default_rng(
                 [SEED, 14, n]).choice(n, K2_SAMPLE, replace=False))).to(CARD)
-        want = curve_torch.point_scalar_mul(
+        want = curve_torch.windowed_ladder(
             curve_torch.F1, tuple(c[rows] for c in pt), bits[rows])
         torch.cuda.synchronize()
         err = _max_err(tuple(c[rows] for c in got), want)
@@ -2359,6 +2420,34 @@ def flush_kernels_phase(n_sms, max_mhz):
         check(err == 0, f"g1_ladder != plain at {n} lanes ({err})")
         print(f"bls381_g1_ladder: == plain bit for bit at {n} lanes of 64 "
               f"bits ({'every row' if n <= K2_SAMPLE else f'{K2_SAMPLE} seeded rows'}; "
+              f"{time.perf_counter() - t0:.6f} s into the phase)",
+              flush=True)
+    # rows split by GLV: the blob verify's 8 rows, and K2_SPLIT_SIZES[1]
+    # rows whose first scalars are the split's edges (every row held; the
+    # edge rows and the blob's also against the host oracle's multiples)
+    for n in K2_SPLIT_SIZES:
+        if n == K2_BLOB[1]:
+            pt, bits, scal = _blob_rows()
+        else:
+            pt = tuple(c[:, 0] for c in _segments("g1", [1] * n, 1))
+            rng = np.random.default_rng([SEED, 18, n])
+            scal = [int.from_bytes(rng.bytes(32), "big") % R
+                    for _ in range(n)]
+            scal[:len(GLV_EDGES)] = GLV_EDGES
+            bits = curve_torch.glv_bits(scal, CARD)
+        got = bls381_cuda.g1_ladder(pt, bits)
+        want = curve_torch.glv_ladder(pt, bits)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        max_err["bls381_g1_ladder"] = max(max_err["bls381_g1_ladder"], err)
+        check(err == 0, f"g1_ladder != plain at {n} split rows ({err})")
+        head = min(n, K2_BLOB[1] + len(GLV_EDGES))
+        pts = curve_torch.g1_unpack(tuple(c[:head].cpu() for c in pt))
+        out = curve_torch.g1_unpack(tuple(c[:head].cpu() for c in got))
+        check(out == [p * s for p, s in zip(pts, scal)],
+              f"g1_ladder at {n} split rows != the host oracle")
+        print(f"bls381_g1_ladder: == plain bit for bit at {n} rows split by "
+              f"GLV (every row; the first {head} == the host oracle; "
               f"{time.perf_counter() - t0:.6f} s into the phase)",
               flush=True)
 
@@ -2423,13 +2512,31 @@ def flush_kernels_phase(n_sms, max_mhz):
     scal = [int(c) for c in np.random.default_rng([SEED, 13]).integers(
         1, 2**63, K2_TIMED, dtype=np.uint64)]
     bits = curve_torch.scalars_to_bits(scal, 64, CARD)
+    k2_products, k2_chain = windowed_products(64, G1_DOUBLE_PRODUCTS,
+                                              G1_ADD_PRODUCTS)
     times["bls381_g1_ladder"] = (
         graph_ms(lambda: bls381_cuda.g1_ladder(pt1, bits), 10),
-        cuda_ms(lambda: curve_torch.point_scalar_mul(curve_torch.F1, pt1,
-                                                     bits), 1),
-        *op_bound(ladder_products(bits.cpu().numpy(), G1_DOUBLE_PRODUCTS,
-                                  G1_ADD_PRODUCTS),
+        cuda_ms(lambda: curve_torch.windowed_ladder(curve_torch.F1, pt1,
+                                                    bits), 1, warmup=0),
+        *op_bound(_live_rows(pt1, scal) * k2_products,
                   K2_TIMED * (36 * 2 * 4 + 64), n_sms, max_mhz))
+    # K2 at the blob verify's shape, through the wrapper and alone on
+    # packed words
+    blob_pt, blob_bits, blob_scal = _blob_rows()
+    blob_words = bls381_cuda._words(torch.stack(blob_pt, dim=1))
+    blob_bits8 = blob_bits.contiguous()
+    blob_out = torch.empty_like(blob_words)
+    k2_launch = cuda_build.build().g1_ladder
+    blob_products, blob_chain = windowed_products(
+        curve_torch.GLV_BITS, G1_DOUBLE_PRODUCTS, G1_ADD_PRODUCTS, split=True)
+    blob = (graph_ms(lambda: bls381_cuda.g1_ladder(blob_pt, blob_bits), 10),
+            graph_ms(lambda: k2_launch(blob_words, blob_bits8,
+                                       curve_torch.GLV_BITS, blob_out,
+                                       K2_BLOB[1], True), 10),
+            cuda_ms(lambda: curve_torch.glv_ladder(blob_pt, blob_bits), 1,
+                    warmup=0),
+            *op_bound(_live_rows(blob_pt, blob_scal) * blob_products,
+                      K2_BLOB[1] * (36 * 2 * 4 + 256), n_sms, max_mhz))
     n_sets, k = K4_SIZES[0]
     _sets, aggs, sigs, coeffs = flush_case(n_sets)
     inputs = shard_verify.fold_inputs(
@@ -2465,17 +2572,31 @@ def flush_kernels_phase(n_sms, max_mhz):
             c[None] for c in bls381_cuda.g2_ladder(g2_pt, g2_bits)))
 
     def mexp_plain():
-        prods = curve_torch.point_scalar_mul(curve_torch.F2, g2_pt, g2_bits)
+        prods = curve_torch.windowed_ladder(curve_torch.F2, g2_pt, g2_bits)
         return bls381_cuda.halving_sum(curve_torch.F2,
                                        tuple(c[None] for c in prods))
-    check(_max_err(mexp(), mexp_plain()) == 0,
-          "g2_multi_exp at the block's shape != plain")
+    g2_err = max(_max_err(bls381_cuda.g2_ladder(g2_pt, g2_bits),
+                          curve_torch.windowed_ladder(curve_torch.F2, g2_pt,
+                                                      g2_bits)),
+                 _max_err(mexp(), mexp_plain()))
+    max_err["bls381_g2"] = g2_err
+    check(g2_err == 0, f"the G2 ladder or g2_multi_exp at the block's shape "
+          f"!= plain ({g2_err})")
     mexp_ms = graph_ms(mexp, 3)
     mexp_plain_ms = cuda_ms(mexp_plain, 1, warmup=0)
-    # the ladders, then the sum's adds of the 14 live products
+    # the ladders' live rows, then the sum's adds of the 14 live products
+    g2_scal = coeffs + [0] * (k - n_sets)
+    g2_products, g2_chain = windowed_products(64, G2_DOUBLE_PRODUCTS,
+                                              G2_ADD_PRODUCTS)
+    g2_live = _live_rows(g2_pt, g2_scal)
+    times["bls381_g2"] = (
+        graph_ms(lambda: bls381_cuda.g2_ladder(g2_pt, g2_bits), 3),
+        cuda_ms(lambda: curve_torch.windowed_ladder(
+            curve_torch.F2, g2_pt, g2_bits), 1, warmup=0),
+        *op_bound(g2_live * g2_products, k * (72 * 4 * 2 + 64), n_sms,
+                  max_mhz))
     mexp_bound, mexp_by = op_bound(
-        ladder_products(g2_bits.cpu().numpy(), G2_DOUBLE_PRODUCTS,
-                        G2_ADD_PRODUCTS) + (n_sets - 1) * G2_ADD_PRODUCTS,
+        g2_live * g2_products + (n_sets - 1) * G2_ADD_PRODUCTS,
         k * (72 * 4 + 64) + 72 * 4, n_sms, max_mhz)
     times["bls381_pairing"] = pairing_launches(
         {k + 1: bls381_cuda.fold_lanes(*inputs, consts),
@@ -2496,6 +2617,18 @@ def flush_kernels_phase(n_sms, max_mhz):
           f"signatures padded to 16 (G2 ladder of 64 bits, then K1, == "
           f"plain bit for bit) {mexp_ms:.6f} ms, plain torch "
           f"{mexp_plain_ms:.6f} ms, bound {mexp_bound:.6f} ms by {mexp_by}")
+    print(f"dependent chains (csrc/bls381_ladder.cuh): K2 {k2_chain} Fq "
+          f"products a 64-bit row, {blob_chain} a split 256-bit row; the G2 "
+          f"ladder {g2_chain} a 64-bit row; a dependent product "
+          f"{times['bls381_g1_ladder'][0] * 1e6 / k2_chain:.1f} ns in K2 at "
+          f"{K2_TIMED} rows, {blob[1] * 1e6 / blob_chain:.1f} ns at the "
+          f"blob verify's rows, "
+          f"{times['bls381_g2'][0] * 1e6 / g2_chain:.1f} ns in the G2 ladder")
+    print(f"bls381_g1_ladder at the blob verify's shape ({K2_BLOB[0]} "
+          f"points padded to {K2_BLOB[1]}, split 256-bit rows): {blob[0]:.6f} "
+          f"ms from a CUDA graph through the wrapper, {blob[1]:.6f} ms the "
+          f"kernel alone, plain torch {blob[2]:.6f} ms, bound {blob[3]:.6f} "
+          f"ms by {blob[4]}")
     return max_err, times
 
 
@@ -2810,8 +2943,7 @@ def msm_kernel_phase(n_sms, max_mhz):
         kernel_ms = graph_ms(lambda: bls381_cuda.pippenger_g1(pt, digits), 3)
         lanes = ""
         if not equal:
-            bits = curve_torch.scalars_to_bits(scalars + [0] * (m - n), 256,
-                                               CARD)
+            bits = curve_torch.glv_bits(scalars + [0] * (m - n), CARD)
             lanes_ms = graph_ms(lambda: bls381_cuda.segment_sum(tuple(
                 c[None] for c in bls381_cuda.g1_ladder(ppt, bits))), 3)
             lanes = f", lanes engine {lanes_ms:.6f} ms"
@@ -2833,7 +2965,7 @@ def msm_kernel_phase(n_sms, max_mhz):
     kernels.pippenger(words, d8, n, *scratch.values(), 0)
     stage_ms = [graph_ms(lambda: kernels.pippenger(
         words, d8, n, *scratch.values(), stage), 3) for stage in range(1, 6)]
-    bits = curve_torch.scalars_to_bits(scalars, 256, CARD)
+    bits = curve_torch.glv_bits(scalars, CARD)
 
     def lanes():
         return bls381_cuda.segment_sum(tuple(
@@ -3109,7 +3241,9 @@ def main(argv=None):
              flush_times),
             ("bls381_g2", "bls381_g2.cu",
              "consensus_specs_tpu/ops/curve_jax.py:175",
-             flush_launches["g2_ladder"], bls_err, bls_times),
+             flush_launches["g2_ladder"],
+             {"bls381_g2": max(bls_err["bls381_g2"],
+                               flush_err["bls381_g2"])}, flush_times),
             ("bls381_field", "bls381_field.cu",
              "consensus_specs_tpu/ops/fq.py:265",
              bls_launches["bls381_field"], bls_err, bls_times),

@@ -12,11 +12,13 @@ the port's other kernels (ops/cuda_build.py):
   in csrc/bls381_check.cu): `miller` (launch 1, a pair's Miller loop a
   block) and `product_final` (launch 2, a job's product and final
   exponentiation a block);
-- csrc/bls381_g2.cu, the G2 ladder: `g2_ladder`;
+- csrc/bls381_g2.cu, the G2 ladder: `g2_ladder`, on the windowed body
+  of csrc/bls381_ladder.cuh;
 - csrc/bls381_field.cu, one elementwise kernel over the field, tower and
   curve ops: `field_op`;
 - csrc/bls381_msm.cu, the segment sums of G1 or G2 points (`segment_sum`,
-  K1) and the G1 ladder (`g1_ladder`, K2);
+  K1) and the G1 ladder (`g1_ladder`, K2, the same windowed body with the
+  GLV split);
 - csrc/bls381_fold.cu, the lanes and the last pair of a folded signature
   flush (`fold_lanes`, K4: a set's three legs as kernels of their own on
   three streams, its cofactor by bls381_cofactor.cu's kernel; a K1 launch
@@ -141,11 +143,13 @@ field_op.plain_calls = 0
 
 
 def g2_ladder(pt, bits):
-    """The G2 ladder: msb-first double-and-add of each Jacobian point
-    (X, Y, Z), each [n, 2, 32] int64 limbs, over its bit row of `bits`
-    [n, nbits] (0/1, any integer or bool dtype).  Returns (X, Y, Z) in the
-    same layout.  The kernel on CUDA tensors, the plain version
-    (curve_torch.point_scalar_mul) on CPU tensors."""
+    """The G2 ladder: s P of each Jacobian point (X, Y, Z), each [n, 2, 32]
+    int64 limbs, over its msb-first bit row of `bits` [n, nbits] (0/1, any
+    integer or bool dtype), by regular signed windows over a table of odd
+    multiples (csrc/bls381_ladder.cuh).  Returns (X, Y, Z) in the same
+    layout.  Any point of E'(Fq2): no subgroup is assumed.  The kernel on
+    CUDA tensors, the plain version (curve_torch.windowed_ladder) on CPU
+    tensors."""
     X, Y, Z = pt
     for name, t in zip("XYZ", pt):
         _check(f"g2_ladder {name}", t, (2, 32), torch.int64, X.device)
@@ -161,7 +165,7 @@ def g2_ladder(pt, bits):
                          f"{X.device}")
     if X.device.type == "cpu":
         g2_ladder.plain_calls += 1
-        return curve_torch.point_scalar_mul(F2, pt, bits)
+        return curve_torch.windowed_ladder(F2, pt, bits)
     kernels = cuda_build.build()
     words = _words(torch.stack(pt, dim=1))            # [n, 3, 2, 12]
     bits8 = bits.to(torch.uint8).contiguous()
@@ -177,10 +181,20 @@ g2_ladder.plain_calls = 0
 
 
 def g1_ladder(pt, bits):
-    """K2, the G1 ladder: msb-first double-and-add of each Jacobian point
-    (X, Y, Z), each [n, 32] int64 limbs, over its bit row of `bits`
-    [n, nbits] (0/1).  Returns (X, Y, Z) in the same layout.  The kernel on
-    CUDA tensors, the plain version (curve_torch.point_scalar_mul) on CPU
+    """K2, the G1 ladder: s P of each Jacobian point (X, Y, Z), each
+    [n, 32] int64 limbs, by regular signed windows over a table of odd
+    multiples (csrc/bls381_ladder.cuh).  `bits` is either [n, nbits], each
+    row s's msb-first bits (0/1), or [n, 2, GLV_BITS], each row split by
+    GLV (curve_torch.glv_bits: s0's bits, then s1's, s = s0 + s1 lambda
+    mod r), which halves the chain of a row wider than 128 bits.  Returns
+    (X, Y, Z) in the same layout.
+
+    Precondition of split rows: every point lies in the r-torsion subgroup
+    (phi(P) = [lambda] P holds only there), as the points of ops/msm.py's
+    callers do (decoded with a subgroup check, or the KZG ceremony's
+    setup); a caller that cannot promise it passes unsplit rows, which
+    hold for any point.  The kernel on CUDA tensors, the plain version
+    (curve_torch.windowed_ladder, curve_torch.glv_ladder) on CPU
     tensors."""
     X, Y, Z = pt
     for name, t in zip("XYZ", pt):
@@ -189,19 +203,24 @@ def g1_ladder(pt, bits):
             raise ValueError(f"g1_ladder: expected [n, 32] coordinates, "
                              f"got {tuple(t.shape)}")
     n = X.shape[0]
-    if bits.dim() != 2 or bits.shape[0] != n or bits.device != X.device:
-        raise ValueError(f"g1_ladder: expected bits [{n}, nbits] on "
-                         f"{X.device}, got {tuple(bits.shape)} on "
-                         f"{bits.device}")
+    split = bits.dim() == 3
+    if not (bits.dim() == 2 or split and tuple(bits.shape[1:]) == (
+            2, curve_torch.GLV_BITS)) or bits.shape[0] != n \
+            or bits.device != X.device:
+        raise ValueError(f"g1_ladder: expected bits [{n}, nbits] or "
+                         f"[{n}, 2, {curve_torch.GLV_BITS}] on {X.device}, "
+                         f"got {tuple(bits.shape)} on {bits.device}")
     if X.device.type == "cpu":
         g1_ladder.plain_calls += 1
-        return curve_torch.point_scalar_mul(F1, pt, bits)
+        if split:
+            return curve_torch.glv_ladder(pt, bits)
+        return curve_torch.windowed_ladder(F1, pt, bits)
     kernels = cuda_build.build()
     words = _words(torch.stack(pt, dim=1))            # [n, 3, 12]
     bits8 = bits.to(torch.uint8).contiguous()
     out = torch.empty_like(words)
     if n:
-        kernels.g1_ladder(words, bits8, bits.shape[1], out, n)
+        kernels.g1_ladder(words, bits8, bits.shape[-1], out, n, split)
         g1_ladder.launches += 1
     return tuple(fq.from_words(out).unbind(1))
 

@@ -632,13 +632,15 @@ BLS_FN void field_op_elem(int op, const uint32_t* a, const uint32_t* b,
   }
 }
 
-// the ladder for one G2 point: pts and out hold 72 words a point
+// pt_ladder for one G2 point: pts and out hold 72 words a point (the host
+// tests hold pt_ladder, K4's legs' ladder, through these two; the G1 and
+// G2 ladder kernels run bls381_ladder.cuh's windowed body)
 BLS_FN void g2_ladder_elem(const uint32_t* p, const uint8_t* bits,
                            int64_t nbits, uint32_t* out) {
   bls_store(out, pt_ladder(bls_load<pt<fp2>>(p), bits, nbits));
 }
 
-// the ladder for one G1 point: p and out hold 36 words a point
+// pt_ladder for one G1 point: p and out hold 36 words a point
 BLS_FN void g1_ladder_elem(const uint32_t* p, const uint8_t* bits,
                            int64_t nbits, uint32_t* out) {
   bls_store(out, pt_ladder(bls_load<pt<fp>>(p), bits, nbits));

@@ -35,7 +35,7 @@ extern "C" int bls381_segment_sum_launch(int g2, void* buf, int64_t len,
                                          void* stream);
 extern "C" int bls381_g1_ladder_launch(const void* pts, const void* bits,
                                        int64_t nbits, void* out, int64_t n,
-                                       void* stream);
+                                       int split, void* stream);
 extern "C" int bls381_fold_w_launch(const void* agg, const void* cbits,
                                     int64_t ncbits, const void* consts,
                                     void* g1, void* skip, int64_t k,
@@ -149,13 +149,15 @@ void bls381_segment_sum(bool g2, torch::Tensor buf, int64_t len,
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
-// K2: the G1 ladder of n points over their bit rows (bls381_msm.cu).
+// K2: the G1 ladder of n points over their bit rows, GLV-split halves
+// when split (bls381_msm.cu).
 void bls381_g1_ladder(const torch::Tensor& pts, const torch::Tensor& bits,
-                      int64_t nbits, torch::Tensor out, int64_t n) {
+                      int64_t nbits, torch::Tensor out, int64_t n,
+                      bool split) {
   const c10::cuda::CUDAGuard guard(pts.device());
   const int rc = bls381_g1_ladder_launch(
       pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
-      c10::cuda::getCurrentCUDAStream().stream());
+      split ? 1 : 0, c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_CHECK(static_cast<cudaError_t>(rc));
 }
 
@@ -253,13 +255,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "the per-validator epoch sweep, up to three launches");
   m.def("bls381_field", &bls381_field,
         "a BLS12-381 field, tower or curve op, elementwise");
-  m.def("bls381_ladder", &bls381_ladder, "the G2 double-and-add ladder");
+  m.def("bls381_ladder", &bls381_ladder, "the windowed G2 ladder");
   m.def("bls381_miller", &bls381_miller, "Miller loops, one a pair");
   m.def("bls381_final", &bls381_final,
         "a job's Miller product and final exponentiation");
   m.def("bls381_segment_sum", &bls381_segment_sum,
         "halving sums of point segments, one block a segment");
-  m.def("bls381_g1_ladder", &bls381_g1_ladder, "the G1 double-and-add ladder");
+  m.def("bls381_g1_ladder", &bls381_g1_ladder, "the windowed G1 ladder (K2)");
   m.def("bls381_fold_w", &bls381_fold_w,
         "the folded flush's weighting leg, affine");
   m.def("bls381_fold_sw", &bls381_fold_sw,

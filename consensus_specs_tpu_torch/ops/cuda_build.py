@@ -154,7 +154,7 @@ def _build_ctypes():
     segment_fn = lib.bls381_segment_sum_launch
     segment_fn.argtypes = [ctypes.c_int, ptr, i64, ptr, i64, ptr]
     g1_ladder_fn = lib.bls381_g1_ladder_launch
-    g1_ladder_fn.argtypes = [ptr, ptr, i64, ptr, i64, ptr]
+    g1_ladder_fn.argtypes = [ptr, ptr, i64, ptr, i64, ctypes.c_int, ptr]
     fold_w_fn = lib.bls381_fold_w_launch
     fold_w_fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i64, ptr]
     fold_sw_fn = lib.bls381_fold_sw_launch
@@ -224,11 +224,11 @@ def _build_ctypes():
                 int(g2), buf.data_ptr(), length, out.data_ptr(), segments,
                 stream_of(buf)))
 
-    def g1_ladder(pts, bits, nbits, out, n):
+    def g1_ladder(pts, bits, nbits, out, n, split):
         with torch.cuda.device(pts.device):
             _check("bls381_msm (G1 ladder)", g1_ladder_fn(
                 pts.data_ptr(), bits.data_ptr(), nbits, out.data_ptr(), n,
-                stream_of(pts)))
+                int(split), stream_of(pts)))
 
     def fold_w(agg, cbits, ncbits, consts, g1, skip, k):
         with torch.cuda.device(agg.device):
@@ -294,14 +294,15 @@ def build():
     `.field(op, a, b, out, n)` (b None for a unary op), `.ladder(pts,
     bits, nbits, out, n)`, `.miller(g1, g2, skip, f, n)` and `.final(f, k,
     do_final, prod, ok, b)`, `.segment_sum(g2, buf, length, out,
-    segments)`, `.g1_ladder(pts, bits, nbits, out, n)`, K4's `.fold_w(agg,
-    cbits, ncbits, consts, g1, skip, k)`, `.fold_sw(sig, cbits, ncbits,
-    sw, k)`, `.fold_h(h_inf, consts, g2, skip, k)` and `.fold_tail(S,
-    consts, g1, g2, skip, k)`, `.clear_cofactor(pts, consts,
-    xy, inf, n)`, `.pairing_check(g1, g2, skip, tq, prod, ok, k, b)` and
-    the Pippenger MSM's `.pippenger(pts, digits, n, idx, bstart, istart,
-    item_bucket, partial, B, tbuf, T, G, out, stage)` (stage 0 its five
-    launches, 1-5 one of them; bls381_cuda.py gives the layouts)."""
+    segments)`, `.g1_ladder(pts, bits, nbits, out, n, split)`, K4's
+    `.fold_w(agg, cbits, ncbits, consts, g1, skip, k)`, `.fold_sw(sig,
+    cbits, ncbits, sw, k)`, `.fold_h(h_inf, consts, g2, skip, k)` and
+    `.fold_tail(S, consts, g1, g2, skip, k)`, `.clear_cofactor(pts,
+    consts, xy, inf, n)`, `.pairing_check(g1, g2, skip, tq, prod, ok, k,
+    b)` and the Pippenger MSM's `.pippenger(pts, digits, n, idx, bstart,
+    istart, item_bucket, partial, B, tbuf, T, G, out, stage)` (stage 0
+    its five launches, 1-5 one of them; bls381_cuda.py gives the
+    layouts)."""
     global _kernels, build_route
     if _kernels is None:
         from torch.utils import cpp_extension

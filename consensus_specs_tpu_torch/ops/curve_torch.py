@@ -14,9 +14,13 @@ per call, not per element); the values are the reference's.
 
 `g2_scalar_mul` is the entry point of the G2 ladder: on a CUDA tensor it
 launches ops/csrc/bls381_g2.cu (ops/bls381_cuda.py), on a CPU tensor it
-runs `point_scalar_mul` here.  `clear_cofactor_g2_plain` is the plain
-version of ops/csrc/bls381_cofactor.cu: h_eff P by the psi endomorphism
-(RFC 9380 G.3), affine.
+runs `windowed_ladder` here.  `windowed_ladder` and `glv_ladder` (over
+`glv_split` rows) are the plain versions of the kernels' windowed body,
+ops/csrc/bls381_ladder.cuh; `point_scalar_mul`, the bit-by-bit ladder, is
+the plain version of bls381.cuh `pt_ladder` (K4's legs).
+`clear_cofactor_g2_plain` is the plain version of
+ops/csrc/bls381_cofactor.cu: h_eff P by the psi endomorphism (RFC 9380
+G.3), affine.
 
 Oracle: crypto/curve.py (the same group, other formulas: compare points,
 not coordinates).
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from ..crypto import curve as cv
-from ..crypto.fields import BLS_X, Q, Fq2
+from ..crypto.fields import BLS_X, Q, R, Fq2
 from . import fq
 from . import fq_tower as ft
 
@@ -145,6 +149,125 @@ def point_scalar_mul(F, pt, scalar_bits):
             acc = tuple(F.select(bits[..., i], a, o)
                         for a, o in zip(added, acc))
     return acc
+
+
+# ---------------------------------------------------------------------------
+# the windowed ladder and the GLV split (plain versions of
+# csrc/bls381_ladder.cuh, the body of K2 and the G2 ladder)
+# ---------------------------------------------------------------------------
+
+LADDER_W = 5                    # csrc/bls381_ladder.cuh LADDER_W
+GLV_BITS = 128                  # LADDER_SPLIT_BITS: bits of each half
+# phi(x, y) = (beta x, y) acts on G1 as [lambda], lambda = x^2 - 1
+GLV_LAMBDA = BLS_X * BLS_X - 1
+GLV_BETA = pow(pow(2, (Q - 1) // 3, Q), 2, Q)
+
+
+def glv_split(s):
+    """(s0, s1) with s0 + s1 * lambda = s mod r and 0 <= s0, s1 < 2^128:
+    s reduced mod r, then s0 = s mod lambda, s1 = s div lambda."""
+    return divmod(int(s) % R, GLV_LAMBDA)[::-1]
+
+
+def glv_bits(scalars, device="cpu") -> torch.Tensor:
+    """Split rows [n, 2, GLV_BITS] (uint8, msb first) of the scalars:
+    row i holds the bits of s0, then of s1 (`glv_split`)."""
+    halves = [h for s in scalars for h in glv_split(s)]
+    return scalars_to_bits(halves, GLV_BITS, device).reshape(
+        len(scalars), 2, GLV_BITS)
+
+
+def ladder_digits(bits, w: int = LADDER_W):
+    """The regular signed digits of msb-first bit rows [n, nbits]:
+    (digits int64 [n, m], the most significant window first, and even bool
+    [n]).  Each digit is odd with |d| < 2^w and sum_j d_j 2^(w (m-1-j)) =
+    s | 1; `even` marks the rows where s is even (bit 0 forced to one),
+    whose ladder subtracts P at the end.  The kernel's `ladder_digit`: a
+    window's bits with its lowest forced to one, less 2^w where the next
+    more significant window's lowest bit is zero."""
+    b = torch.as_tensor(bits).to(torch.int64)
+    n, nbits = b.shape
+    m = max(1, -(-nbits // w))
+    b = torch.nn.functional.pad(b, (m * w - nbits, 0)).reshape(n, m, w)
+    low = b[:, :, -1].clone()
+    b[:, :, -1] = 1
+    v = (b << torch.arange(w - 1, -1, -1, device=b.device)).sum(-1)
+    upper = torch.cat([torch.ones_like(low[:, :1]), low[:, :-1]], dim=1)
+    return torch.where(upper == 1, v, v - (1 << w)), low[:, -1] == 0
+
+
+def ladder_table(F, pt, w: int = LADDER_W):
+    """The odd multiples P, 3P, ..., (2^w - 1)P of each point, (X, Y, Z)
+    each [n, 2^(w-1), ...], by the kernel's levels: 2P = 2 P; at level
+    j > 1, (2^(j-1) + k)P = 2^(j-1)P + kP for odd k < 2^(j-1) and, below
+    the last, 2^j P = 2 (2^(j-1) P); each level's adds as one call."""
+    odd = [pt]
+    even = point_double(F, pt)
+    for level in range(2, w + 1):
+        k = len(odd)
+        e = tuple(c.unsqueeze(0).expand((k,) + c.shape) for c in even)
+        sums = point_add(F, tuple(c.flatten(0, 1) for c in e),
+                         tuple(torch.cat(c) for c in zip(*odd)))
+        odd += [tuple(c.unflatten(0, (k, -1))[i] for c in sums)
+                for i in range(k)]
+        if level < w:
+            even = point_double(F, even)
+    return tuple(torch.stack(c, dim=1) for c in zip(*odd))
+
+
+def ladder_chain(F, table, bits, w: int = LADDER_W):
+    """s P of each row over its table of odd multiples (`ladder_table`,
+    P = table[:, 0]) and its msb-first bit row: the top digit's entry,
+    then per window w doublings and one add of the entry, its Y negated
+    where the digit is negative; even rows ran as s + 1, and a select
+    keeps the sum with -P.  The kernel's `ladder_chain`."""
+    digits, even = ladder_digits(bits, w)
+    rows = torch.arange(digits.shape[0], device=digits.device)
+
+    def entry(d):
+        e = tuple(c[rows, d.abs() >> 1] for c in table)
+        return (e[0], F.select(d < 0, F.neg(e[1]), e[1]), e[2])
+    acc = entry(digits[:, 0])
+    for j in range(1, digits.shape[1]):
+        for _ in range(w):
+            acc = point_double(F, acc)
+        acc = point_add(F, acc, entry(digits[:, j]))
+    p = tuple(c[:, 0] for c in table)
+    fixed = point_add(F, acc, point_neg(F, p))
+    return tuple(F.select(even, f, a) for f, a in zip(fixed, acc))
+
+
+def windowed_ladder(F, pt, bits):
+    """Plain version of the windowed ladder (the G2 ladder and unsplit K2
+    rows): s P of each Jacobian point over its msb-first bit row [n,
+    nbits], equal to the kernel's words bit for bit."""
+    bits = torch.as_tensor(bits)
+    if bits.device != pt[0].device:
+        bits = bits.to(pt[0].device)
+    return ladder_chain(F, ladder_table(F, pt), bits)
+
+
+def point_phi(pt):
+    """phi on Jacobian G1 limbs: (beta X, Y, Z), [lambda] P on G1."""
+    X, Y, Z = pt
+    beta = fq.pack_mont([GLV_BETA], X.device)[0]
+    return (fq.mul(X, beta.expand_as(X)), Y, Z)
+
+
+def glv_ladder(pt, halves):
+    """Plain version of K2's split rows: s P = s0 P + s1 phi(P) for G1
+    points in the r-torsion subgroup, halves [n, 2, GLV_BITS] (`glv_bits`):
+    one table of P's odd multiples and phi of it, the two chains as one
+    call over 2n rows, then one add, s0 P + s1 phi(P)."""
+    halves = torch.as_tensor(halves)
+    if halves.device != pt[0].device:
+        halves = halves.to(pt[0].device)
+    table = ladder_table(F1, pt)
+    both = tuple(torch.cat([c, p]) for c, p in zip(table, point_phi(table)))
+    acc = ladder_chain(F1, both, torch.cat([halves[:, 0], halves[:, 1]]))
+    n = pt[0].shape[0]
+    return point_add(F1, tuple(c[:n] for c in acc),
+                     tuple(c[n:] for c in acc))
 
 
 def point_sum_tree(F, pts):

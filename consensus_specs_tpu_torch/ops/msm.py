@@ -10,14 +10,15 @@ Counterpart of consensus_specs_tpu/ops/msm.py:
   n >= `_PIPPENGER_MIN` the windowed Pippenger MSM (the kernel
   ops/csrc/bls381_pippenger.cu through `bls381_cuda.pippenger_g1`);
   otherwise, and always on the CPU, the lanes engine, the G1 ladder
-  (ops/csrc/bls381_msm.cu, K2) over 256-bit rows and one segment sum (K1)
-  in the halving order of the reference's `_tree_sum_host`.  The plain
-  Pippenger `_pippenger_g1` is the kernel's reference version;
+  (ops/csrc/bls381_msm.cu, K2) over rows split by GLV (two 128-bit halves
+  a scalar, curve_torch.glv_bits) and one segment sum (K1) in the halving
+  order of the reference's `_tree_sum_host`.  The plain Pippenger
+  `_pippenger_g1` is the kernel's reference version;
 - `g1_weighted_sweep(points, scalars)`: the per-pair weighted points
   [s_i P_i], no reduction: the Fiat-Shamir weighting of a flush's
   aggregates (sigpipe/scheduler.py), one G1 ladder launch
   (ops/csrc/bls381_msm.cu, K2) over 64-bit bit rows when every scalar fits
-  in 64 bits, 256-bit rows otherwise;
+  in 64 bits, rows split by GLV otherwise (the reference's 256-bit rows);
 - `g2_multi_exp(points, scalars)`: sum_i s_i P_i over G2, the folded
   signature sum of a staged flush (sigpipe/fold.py): the G2 ladder
   (ops/csrc/bls381_g2.cu) over the same bit rows, then one segment sum
@@ -26,7 +27,15 @@ Counterpart of consensus_specs_tpu/ops/msm.py:
 
 All run on the device of `consensus_specs_tpu_torch.get_device()`, the
 kernels on the card and their plain versions on the CPU; scalars are
-reduced mod r first (every input point lies in the r-torsion subgroup).
+reduced mod r first, as in the reference: every input point lies in the
+r-torsion subgroup, which the GLV split needs too.  The callers' points
+passed a subgroup check: the flush's aggregates are sums of pubkeys that
+sigpipe/cache.py decodes with one, the KZG batch verify's proofs and
+commitments pass `validate_kzg_g1` before `fold_kzg_lincombs`, and
+crypto/kzg.py's `g1_lincomb` takes the ceremony's setup points, which
+the setup puts in G1; the BLS shim's `multi_exp` (utils/bls.py), whose
+points come from `bytes48_to_G1` without a check, keeps unsplit rows
+(`glv=False`).
 The reference's mesh sharding of the ladder axis is not ported (ROADMAP
 A8).
 """
@@ -146,14 +155,15 @@ def _pippenger_inputs(points, scalars, device, w_bits: int = _W_BITS,
             torch.from_numpy(digits).to(device))
 
 
-def g1_multi_exp(points, scalars):
+def g1_multi_exp(points, scalars, *, glv: bool = True):
     """sum_i scalars[i] * points[i] over G1; returns an oracle Point.
 
     On the card at n >= _PIPPENGER_MIN: the Pippenger MSM over the n
     points as they are, one `bls381_cuda.pippenger_g1` call.  Otherwise the lanes
-    engine: one G1 ladder over 256-bit rows, the points padded to a power
-    of two, then one segment sum in the halving order of the reference's
-    `_tree_sum_host`."""
+    engine: one G1 ladder over rows split by GLV (256-bit rows with
+    `glv=False`, for points not known to lie in G1), the points padded to
+    a power of two, then one segment sum in the halving order of the
+    reference's `_tree_sum_host`."""
     if len(points) != len(scalars):
         raise ValueError("g1_multi_exp: length mismatch")
     if not points:
@@ -167,18 +177,23 @@ def g1_multi_exp(points, scalars):
     m = _pow2(n)
     pts = list(points) + [cv.g1_infinity()] * (m - n)
     sc = [int(s) % R for s in scalars] + [0] * (m - n)
-    prods = bls381_cuda.g1_ladder(curve_torch.g1_pack(pts, device),
-                                  curve_torch.scalars_to_bits(sc, 256, device))
+    bits = curve_torch.glv_bits(sc, device) if glv else \
+        curve_torch.scalars_to_bits(sc, 256, device)
+    prods = bls381_cuda.g1_ladder(curve_torch.g1_pack(pts, device), bits)
     total = bls381_cuda.segment_sum(tuple(c[None] for c in prods))
     return curve_torch.g1_unpack(tuple(c.cpu() for c in total))[0]
 
 
-def _scalar_bits(scalars, device):
+def _scalar_bits(scalars, device, glv: bool = True):
     """msb-first bit rows [n, 64] of the scalars when all fit in 64 bits,
-    else [n, 256] (the reference's `n_bits` choice), uint8 on `device`."""
+    else [n, 256] (the reference's `n_bits` choice), or with `glv` rows
+    split by GLV [n, 2, 128] in their place; uint8 on `device`."""
     width = max((s.bit_length() for s in scalars), default=1) or 1
-    return curve_torch.scalars_to_bits(scalars, 64 if width <= 64 else 256,
-                                       device)
+    if width <= 64:
+        return curve_torch.scalars_to_bits(scalars, 64, device)
+    if glv:
+        return curve_torch.glv_bits(scalars, device)
+    return curve_torch.scalars_to_bits(scalars, 256, device)
 
 
 def g1_weighted_sweep(points, scalars):
@@ -209,6 +224,6 @@ def g2_multi_exp(points, scalars):
     sc = [int(s) % R for s in scalars] + [0] * (m - n)
     device = _device()
     prods = curve_torch.g2_scalar_mul(curve_torch.g2_pack(pts, device),
-                                      _scalar_bits(sc, device))
+                                      _scalar_bits(sc, device, glv=False))
     total = bls381_cuda.segment_sum(tuple(c[None] for c in prods))
     return curve_torch.g2_unpack(tuple(c.cpu() for c in total))[0]

@@ -276,14 +276,15 @@ def multi_exp(points, integers):
     MULTI_EXP_DEVICE_THRESHOLD points or more through the device MSMs,
     G1 through ops/msm.g1_multi_exp and G2 through ops/msm.g2_multi_exp,
     with no host fallback; smaller batches and the native backend take the
-    oracle."""
+    oracle.  Points here may come from `bytes48_to_G1`, which skips the
+    subgroup check, so the G1 lanes keep unsplit rows (`glv=False`)."""
     if _backend_name == "cuda" and len(points) >= MULTI_EXP_DEVICE_THRESHOLD:
         from ..crypto import curve as cv
         from ..ops import msm as device_msm
         first = points[0]
         if isinstance(first, cv.Point):
             if isinstance(first.x, cv.Fq1):
-                return device_msm.g1_multi_exp(points, integers)
+                return device_msm.g1_multi_exp(points, integers, glv=False)
             return device_msm.g2_multi_exp(points, integers)
     return _native().multi_exp(points, integers)
 

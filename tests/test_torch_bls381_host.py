@@ -6,7 +6,11 @@ CIOS products, tower and point formulas that `bls381_field.cu`,
 `bls381_g2.cu`, `bls381_msm.cu` and `bls381_fold.cu` run on the card.
 This test builds a small shared library from it with the host's C++
 compiler, loops the kernels' per-element bodies (`field_op_elem`,
-`g2_ladder_elem`, `g1_ladder_elem`, `segment_step_elem` in the segment-sum
+`g2_ladder_elem`, `g1_ladder_elem` (bls381.cuh's `pt_ladder`, the
+bit-by-bit ladder of K4's legs), the windowed ladder's rows
+(`ladder_row` of `bls381_ladder.cuh`, the body of K2 and the G2 ladder:
+split G1 rows, G1 and G2 rows, against `curve_torch.glv_ladder` and
+`windowed_ladder`), `segment_step_elem` in the segment-sum
 kernel's rounds, the fold's legs `fold_w_elem`, `cofactor_elem` then
 `fold_h_elem` and `fold_sw_elem` (`bls381_fold.cuh`) and `fold_tail_elem`
 around a segment sum) over seeded inputs, and holds every output against
@@ -59,6 +63,7 @@ HARNESS = r"""
 #include "bls381_pairing.cuh"
 #include "bls381_fold.cuh"
 #include "bls381_pippenger.cuh"
+#include "bls381_ladder.cuh"
 #include <stdlib.h>
 extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
                       uint32_t* out, int64_t n) {
@@ -75,6 +80,31 @@ extern "C" void g1_ladder(const uint32_t* p, const uint8_t* bits,
                           int64_t nbits, uint32_t* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     g1_ladder_elem(p + i * 36, bits + i * nbits, nbits, out + i * 36);
+}
+// the windowed ladder's rows (bls381_msm.cu's K2, bls381_g2.cu), a row
+// after another, each level's lanes in turn
+extern "C" void windowed(int g2, int split, const uint32_t* p,
+                         const uint8_t* bits, int64_t nbits, uint32_t* out,
+                         int64_t n) {
+  if (g2) {
+    pt<fp2>* tab = (pt<fp2>*)malloc(sizeof(pt<fp2>) * LADDER_ENTRIES);
+    for (int64_t i = 0; i < n; ++i)
+      ladder_row<fp2, false>(tab, p + i * 72, bits + i * nbits, nbits,
+                             out + i * 72, true);
+    free(tab);
+  } else if (split) {
+    pt<fp>* tab = (pt<fp>*)malloc(sizeof(pt<fp>) * LADDER_SPLIT_ENTRIES);
+    for (int64_t i = 0; i < n; ++i)
+      ladder_row<fp, true>(tab, p + i * 36, bits + i * 2 * nbits, nbits,
+                           out + i * 36, true);
+    free(tab);
+  } else {
+    pt<fp>* tab = (pt<fp>*)malloc(sizeof(pt<fp>) * LADDER_ENTRIES);
+    for (int64_t i = 0; i < n; ++i)
+      ladder_row<fp, false>(tab, p + i * 36, bits + i * nbits, nbits,
+                            out + i * 36, true);
+    free(tab);
+  }
 }
 // the segment-sum kernel's rounds, one segment after another
 extern "C" void segment_sum(int g2, uint32_t* buf, int64_t len,
@@ -220,6 +250,7 @@ def host_lib(tmp_path_factory):
     lib.field.argtypes = [ctypes.c_int, p, p, p, i64]
     lib.ladder.argtypes = [p, p, i64, p, i64]
     lib.g1_ladder.argtypes = [p, p, i64, p, i64]
+    lib.windowed.argtypes = [ctypes.c_int, ctypes.c_int, p, p, i64, p, i64]
     lib.segment_sum.argtypes = [ctypes.c_int, p, i64, p, i64]
     lib.fold.argtypes = [p, p, i64, p, p, p, p, p, p, p, p, i64]
     lib.miller.argtypes = [p, p, p, p, i64]
@@ -291,6 +322,42 @@ def test_g1_ladder_equals_the_plain_version(host_lib):
                        out.data_ptr(), 3)
     want = ct.point_scalar_mul(ct.F1, pts, bits)
     assert torch.equal(fq.from_words(out), torch.stack(want, dim=1))
+
+
+@pytest.mark.parametrize("case", ["g1-256-split", "g1-64", "g2-64"])
+def test_windowed_ladder_equals_the_plain_version(host_lib, case):
+    """bls381_ladder.cuh's rows (the table's levels, the phi level and the
+    two chains of a split row, their join) against
+    `curve_torch.glv_ladder` and `windowed_ladder` word for word: split
+    256-bit G1 rows with the GLV edges, 64-bit G1 and G2 rows with scalar
+    0, an even scalar and an infinity point."""
+    lam = ct.GLV_LAMBDA
+    if case == "g2-64":
+        gen, inf, pack = cv.g2_generator(), cv.g2_infinity(), ct.g2_pack
+    else:
+        gen, inf, pack = cv.g1_generator(), cv.g1_infinity(), ct.g1_pack
+    if case == "g1-256-split":
+        scalars = [0, 1, lam - 1, lam, 2**128, R - lam, R - 1, 0xC0FFEE]
+    else:
+        scalars = [0, 1, 2**64 - 1, 0xDEADBEEF12345678, 2**63, 6]
+    pts = [gen * (0x1234567 + 89 * i) for i in range(len(scalars))]
+    pts[2] = inf
+    pt = pack(pts)
+    words = _words(torch.stack(pt, dim=1))
+    out = torch.empty_like(words)
+    if case == "g1-256-split":
+        bits = ct.glv_bits(scalars)
+        want = ct.glv_ladder(pt, bits)
+    else:
+        bits = ct.scalars_to_bits(scalars, 64)
+        want = ct.windowed_ladder(ct.F2 if case == "g2-64" else ct.F1, pt,
+                                  bits)
+    host_lib.windowed(int(case == "g2-64"), int(case == "g1-256-split"),
+                      words.data_ptr(), bits.data_ptr(), bits.shape[-1],
+                      out.data_ptr(), len(scalars))
+    assert torch.equal(fq.from_words(out), torch.stack(want, dim=1))
+    unpack = ct.g2_unpack if case == "g2-64" else ct.g1_unpack
+    assert unpack(want) == [p * s for p, s in zip(pts, scalars)]
 
 
 def _segments(g, inf):

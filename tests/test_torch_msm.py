@@ -9,8 +9,11 @@ and a segment sum) against the JAX package's G2 fold of the same flush
 same seeded points and scalars cross the package line as affine integers;
 results are compared as points, compressed, byte for byte.  The scalars
 are the scheduler's 64-bit coefficients, with edges: 0, 1, 2^64 - 1, one
-wider than 64 bits (the 256-bit rows) and one above the group order
-(reduced mod r), on points that include infinity.
+wider than 64 bits (the rows split by GLV) and one above the group order
+(reduced mod r), on points that include infinity; the "glv edges" case
+adds the split's edges (lambda - 1, lambda, 2^128, r - lambda, r - 1),
+and the G2 fold runs at 5 points and at 9 (padded to 16 with infinity
+and scalar 0, an even scalar on the infinity row).
 """
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from consensus_specs_tpu.sigpipe import fold as ref_fold
 from consensus_specs_tpu_torch.crypto import curve as cv
 from consensus_specs_tpu_torch.crypto.fields import R
 from consensus_specs_tpu_torch.ops import bls381_cuda, msm
+from consensus_specs_tpu_torch.ops.curve_torch import GLV_LAMBDA
 
 SEED = 2026
 
@@ -37,7 +41,8 @@ def _case(group, n, wide, rng):
     """(points as affine integers, scalars): n seeded multiples of the
     group's generator, the second one infinity (None), and seeded 64-bit
     scalars whose first entries are the edges; `wide` adds a 200-bit
-    scalar and one above r."""
+    scalar and one above r, "glv edges" the GLV split's edges after
+    them."""
     g1 = group == "g1"
     gen = cv.g1_generator() if g1 else cv.g2_generator()
     affine = []
@@ -51,6 +56,9 @@ def _case(group, n, wide, rng):
     if wide:
         scalars[3] = int(rng.integers(1, 2**62)) << 138
         scalars[4] = R + 12345
+    if wide == "glv edges":
+        scalars[5:10] = [GLV_LAMBDA - 1, GLV_LAMBDA, 2**128, R - GLV_LAMBDA,
+                         R - 1]
     return affine, scalars
 
 
@@ -75,10 +83,12 @@ def _bytes(module, group, pts):
     return [enc(p) for p in pts]
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["64-bit", "wide"])
+@pytest.mark.parametrize("wide", [False, True, "glv edges"],
+                         ids=["64-bit", "wide", "glv edges"])
 def test_g1_weighted_sweep_equals_the_reference(wide):
-    rng = np.random.default_rng([SEED, 1, wide])
-    affine, scalars = _case("g1", 7, wide, rng)
+    tag = {False: 0, True: 1, "glv edges": 2}[wide]
+    rng = np.random.default_rng([SEED, 1, tag])
+    affine, scalars = _case("g1", 11 if tag == 2 else 7, wide, rng)
     before = bls381_cuda.g1_ladder.plain_calls
     got = msm.g1_weighted_sweep(_points(cv, "g1", affine), scalars)
     want = ref_msm.g1_weighted_sweep(_points(ref_cv, "g1", affine), scalars)
@@ -86,9 +96,12 @@ def test_g1_weighted_sweep_equals_the_reference(wide):
     assert bls381_cuda.g1_ladder.plain_calls == before + 1
 
 
-def test_g2_multi_exp_equals_the_reference_fold():
-    rng = np.random.default_rng([SEED, 2])
-    affine, scalars = _case("g2", 5, False, rng)
+@pytest.mark.parametrize("n", [5, 9])
+def test_g2_multi_exp_equals_the_reference_fold(n):
+    rng = np.random.default_rng([SEED, 2] + ([] if n == 5 else [n]))
+    affine, scalars = _case("g2", n, False, rng)
+    if n == 9:
+        scalars[1] = 0                            # on the infinity row
     before = (bls381_cuda.g2_ladder.plain_calls,
               bls381_cuda.segment_sum.plain_calls)
     got = msm.g2_multi_exp(_points(cv, "g2", affine), scalars)
