@@ -21,7 +21,9 @@ version:
 3. kernel: the pair-hash kernel against the plain torch version on the card,
    bit for bit, at 1, 255, 256, 257, 65,537, 2**17 and 2**20 pairs, with rows
    checked against hashlib, and the times of kernel (replayed from a CUDA
-   graph, and launched eagerly), plain version and host hashlib;
+   graph, and launched eagerly), plain version and host hashlib, beside its
+   bound by operations and bytes, and the time of its compiled SASS's
+   busiest pipe (cuobjdump, counted by pipe);
 4. main path: a mainnet-preset phase0 BeaconState of 262,144 validators, made
    from a seed, advanced from slot 97 to 99 with `process_slots` on the card,
    and the same steps on a copy with host hashing; the post-states must be
@@ -47,7 +49,8 @@ version:
 8. epoch kernel: the epoch-sweep kernel against the plain torch version on
    the card, bit for bit on every output lane, for both families, with and
    without a leak, without rewards and with electra's slashings, at 1, 255,
-   257, 65,537, 2**18 and 2**20 lanes, and its times;
+   257, 65,537, 2**18 and 2**20 lanes, and its times beside its bound by
+   bytes and operations;
 9. bls kernels: every op of the field kernel on 2**16 seeded elements, the
    h_eff ladder on 1, 64 and 1,024 points (one plain call on the first 64 and
    64 seeded rows of the 1,024), and the Miller values, products and
@@ -70,8 +73,9 @@ version:
    FastAggregateVerify over a 128-key committee (valid, invalid) and
    AggregateVerify over 8 messages on the shim's device backend, each
    verdict equal to the native oracle's;
-11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128 and 64
-   ragged segments up to 2,048, G2 at one segment of 1,024), the G1 ladder
+11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128, 64
+   ragged segments up to 2,048 and the blob verify's 6 points of 8, G2 at
+   one segment of 1,024 and the block fold's 14 of 16), the G1 ladder
    (1,024 and 16,384 lanes of 64 bits, the larger on a seeded sample of
    1,024 rows; 8 and 1,024 rows split by GLV, the split's edge scalars
    among them), the G2 ladder at the staged flush's 16 rows of 64 bits
@@ -80,8 +84,9 @@ version:
    product after it (k = 16 from 14 sets and 256, valid and with one bad
    set) against their plain torch versions on the card, bit for bit; at
    k = 1,024 the verdict and the 1,025 legs against the host's integers;
-   the times of the block's shapes and of the blob verify's G1 ladder
-   (8 split rows) from a CUDA graph; the pairing kernel's
+   the times of the block's shapes, of the segment sums at their three
+   paths' and of the blob verify's G1 ladder (8 split rows) from a CUDA
+   graph; the pairing kernel's
    launches alone at the flush's shapes (launch 1 over the block's 17 legs
    and a 256-set flush's 257, launch 2 over one job of as many values
    without the final exponentiation and over the block's partial product
@@ -189,6 +194,7 @@ COMMITTEE = 128                 # bench.py COMMITTEE: balances a block credits
 EPOCH_KERNEL_SIZES = (1, 255, 257, 65537, 1 << 18, 1 << 20)
 EPOCH_TIMED = 1 << 18           # the epoch path's sweep
 EPOCH_PROPOSERS = 32            # a previous epoch's block proposers
+EPOCH_SWEEP_LAUNCHES = 2        # a phase0 sweep with rewards: sums and scatter, lanes
 # name: (family, leak, do_rewards, electra)
 EPOCH_CASES = {
     "phase0": ("phase0", False, True, False),
@@ -205,20 +211,36 @@ EPOCH_CASES = {
 # a lower bound, since an int64 multiply or division takes several
 EPOCH_OPS_PER_LANE = 60
 
-# H100 SXM data sheet: HBM3 at 3.35 TB/s.  No instruction mix issues faster
-# than 128 lanes per SM per clock (four schedulers, one 32-lane warp
-# instruction a clock each; the data sheet's 67 TFLOP/s float32 is this rate
-# with an FMA counted as two).  SM count and max clock are read from the card.
+# H100 SXM data sheet: HBM3 at 3.35 TB/s.  SM count and max clock are read
+# from the card.  Each of an SM's four sub-partitions issues one 32-lane
+# warp instruction a clock (128 lanes an SM; the data sheet's 67 TFLOP/s
+# float32 is this rate with an FMA counted as two), and runs 16 lanes a
+# clock of its integer pipe and 16 of the FMA pipe (64 lanes an SM each;
+# the white paper's 64 INT32 and 128 FP32 lanes an SM).  An add, a shift
+# or a move has a form on either pipe (IADD3 or IMAD.IADD, SHF or
+# IMAD.SHL and IMAD.HI, MOV or IMAD.MOV); a logic op (LOP3) runs on the
+# integer pipe only.
 MEMORY_BYTES_PER_S = 3.35e12
-SCHEDULER_LANES_PER_SM_PER_CLOCK = 128
+ISSUE_LANES_PER_SM_PER_CLOCK = 128
+INT_PIPE_LANES_PER_SM_PER_CLOCK = 64
+FMA_PIPE_LANES_PER_SM_PER_CLOCK = 64
 # 32-bit instructions one pair needs at the least, with the three-input
 # forms Hopper has (LOP3 for any logic of three words, IADD3 for a sum of
 # three, SHF for a rotate): a round is 14 (Sigma1 and Sigma0 3 SHF + 1 LOP3
 # each, Ch 1, Maj 1, T1 2 IADD3, e 1, a 1), a schedule word 10 (sigma0 and
 # sigma1 3 shifts + 1 LOP3 each, 2 IADD3), a block's feed-forward 8.  The
 # message block has 64 rounds and 48 schedule words; the pad block's schedule
-# is constant and needs no instruction.
+# is constant and needs no instruction.  Of these, the logic ops (4 a round,
+# 2 a schedule word) have no form on the FMA pipe.
 OPS_PER_PAIR = (64 * 14 + 48 * 10 + 8) + (64 * 14 + 8)
+LOGIC_OPS_PER_PAIR = (64 * 4 + 48 * 2) + 64 * 4
+# the pipes of the compiled SASS (sass_pipes), printed beside the bound:
+# what this compilation puts on each pipe, not the least the function needs
+INT_PIPE_OPS = frozenset((
+    "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP",
+    "SEL", "PRMT", "IMNMX", "IABS", "MOV", "PLOP3", "FSEL", "FSETP",
+    "FMNMX", "BMSK", "SGXT", "P2R", "R2P", "VIADD", "VIMNMX"))
+FMA_PIPE_OPS = frozenset(("IMAD", "IMUL", "FFMA", "FMUL", "FADD"))
 BYTES_PER_PAIR = 64 + 32
 # a gathered pair also reads its two int32 row indices
 GATHER_BYTES_PER_PAIR = BYTES_PER_PAIR + 8
@@ -317,9 +339,9 @@ def build_phase():
     release = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True).stdout.strip().splitlines()
     print(f"sha256_pairs, sha256_gather, epoch_sweep, bls381_g2, "
-          f"bls381_field, bls381_msm (segment sums, G1 ladder), bls381_fold, "
+          f"bls381_field, bls381_msm (G1 ladder), bls381_fold, "
           f"bls381_cofactor, bls381_check (with bls381_pairing's two "
-          f"launches) and bls381_pippenger built by "
+          f"launches and the segment sums) and bls381_pippenger built by "
           f"{cuda_build.build_route} into {cuda_build.BUILD_DIR} with nvcc "
           f"{release[-1] if release else 'of unknown version'}")
     print_resource_usage()
@@ -395,13 +417,100 @@ def print_spills(sources):
               f"{' (' + ', '.join(spilling) + ')' if spilling else ''}")
 
 
+def cuobjdump_sass(obj):
+    """The SASS of a built object (cuobjdump -sass)."""
+    from torch.utils import cpp_extension
+    tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
+                        "cuobjdump")
+    check(os.path.exists(tool), "no cuobjdump to read the SASS with")
+    return subprocess.run([tool, "-sass", obj], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_functions(sass):
+    """Each function's instructions in `sass`, by pipe: {name: {"int",
+    "fma", "issue" (every instruction but NOP), "other" (a Counter of
+    the opcodes on neither pipe)}}."""
+    from collections import Counter
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"int": 0, "fma": 0, "issue": 0,
+                            "other": Counter()}
+            continue
+        if not (name and line.strip().startswith("/*") and ";" in line):
+            continue
+        op = line.split("*/", 1)[1].split()
+        op = (op[1] if op and op[0].startswith("@") else op[0]).split(".")[0]
+        if op == "NOP":
+            continue
+        c = counts[name]
+        c["issue"] += 1
+        if op in INT_PIPE_OPS:
+            c["int"] += 1
+        elif op in FMA_PIPE_OPS:
+            c["fma"] += 1
+        else:
+            c["other"][op] += 1
+    return counts
+
+
+def sass_pipes(source, kernels):
+    """The instructions of the kernels whose names hold one of `kernels`,
+    summed, by pipe (sass_functions), from the SASS of `source`'s object
+    in the build.  A straight-line kernel (the SHA-256 pair a thread)
+    runs each once a thread; a kernel that branches is over-counted by
+    the branches a thread does not take."""
+    from collections import Counter
+    objs = [f for f in os.listdir(cuda_build.BUILD_DIR)
+            if f.startswith(source + ".") and f.endswith(".o")]
+    check(objs, f"no object of {source} in {cuda_build.BUILD_DIR}")
+    total = {"int": 0, "fma": 0, "issue": 0, "other": Counter()}
+    for name, c in sass_functions(cuobjdump_sass(
+            os.path.join(cuda_build.BUILD_DIR, objs[0]))).items():
+        if any(k in name for k in kernels):
+            for key in total:
+                total[key] += c[key]
+    check(total["issue"], f"no SASS of {kernels} in {objs[0]}")
+    return total
+
+
+def pipe_ms(pipes, items, n_sms, max_mhz):
+    """(ms, pipe) the busiest pipe takes for `items` threads that each run
+    the instructions `pipes` counts."""
+    lanes = {"issue": pipes["issue"] / ISSUE_LANES_PER_SM_PER_CLOCK,
+             "int": pipes["int"] / INT_PIPE_LANES_PER_SM_PER_CLOCK,
+             "fma": pipes["fma"] / FMA_PIPE_LANES_PER_SM_PER_CLOCK}
+    busiest = max(lanes, key=lanes.get)
+    return (lanes[busiest] * items / (n_sms * max_mhz * 1e6) * 1e3,
+            busiest)
+
+
+def pipes_text(pipes):
+    other = ", ".join(f"{op} {c}" for op, c in
+                      pipes["other"].most_common(8))
+    return (f"{pipes['issue']} instructions: {pipes['int']} on the integer "
+            f"pipe, {pipes['fma']} on the FMA pipe, others {other}")
+
+
 def bound(n_pairs, bytes_per_pair, n_sms, max_mhz):
-    """(bound_ms, bound_by, op_ms, byte_ms) of n_pairs 2-to-1 hashes."""
-    op_ms = OPS_PER_PAIR * n_pairs / (
-        n_sms * SCHEDULER_LANES_PER_SM_PER_CLOCK * max_mhz * 1e6) * 1e3
+    """(bound_ms, bound_by, op_ms, byte_ms) of n_pairs 2-to-1 hashes: the
+    least instructions a pair needs at the issue rate, or their logic ops
+    at the integer pipe's, whichever is slower, against the bytes."""
+    clocks = max(OPS_PER_PAIR / ISSUE_LANES_PER_SM_PER_CLOCK,
+                 LOGIC_OPS_PER_PAIR / INT_PIPE_LANES_PER_SM_PER_CLOCK)
+    op_ms = clocks * n_pairs / (n_sms * max_mhz * 1e6) * 1e3
     byte_ms = bytes_per_pair * n_pairs / MEMORY_BYTES_PER_S * 1e3
     return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms
             else "bytes", op_ms, byte_ms)
+
+
+def compiled_text(pipes, n_pairs, n_sms, max_mhz):
+    """The compiled SASS's busiest pipe's time for n_pairs, as printed."""
+    ms, pipe = pipe_ms(pipes, n_pairs, n_sms, max_mhz)
+    return (f"as compiled, its SASS's busiest pipe ({pipe}) takes "
+            f"{ms:.6f} ms")
 
 
 @phase("kernel")
@@ -409,6 +518,8 @@ def kernel_phase(n_sms, max_mhz):
     rng = np.random.default_rng(SEED)
     max_err = 0
     times = {}
+    pipes = sass_pipes("sha256_pairs", ("sha256_pairs_kernel",))
+    print(f"sha256_pairs SASS, a pair: {pipes_text(pipes)}")
     for n in KERNEL_SIZES:
         words = seeded_chunks(rng, n)
         x = sha256.words_from_numpy(words, "cuda")
@@ -448,8 +559,9 @@ def kernel_phase(n_sms, max_mhz):
                   f"{plain_ms:.6f} ms, host hashlib {host_s * 1e3:.6f} ms "
                   f"({n / host_s:.0f} pairs/s); bound {op_ms:.6f} ms by "
                   f"{OPS_PER_PAIR * n} operations, {byte_ms:.6f} ms by "
-                  f"{BYTES_PER_PAIR * n} bytes; no PyTorch call computes "
-                  f"SHA-256, so no library time")
+                  f"{BYTES_PER_PAIR * n} bytes; "
+                  f"{compiled_text(pipes, n, n_sms, max_mhz)}; no PyTorch "
+                  f"call computes SHA-256, so no library time")
     return max_err, times
 
 
@@ -984,6 +1096,8 @@ def gather_kernel_phase(n_sms, max_mhz, largest):
     rng = np.random.default_rng(SEED + 2)
     max_err = 0
     timed = {}
+    pipes = sass_pipes("sha256_gather", ("sha256_gather_kernel",))
+    print(f"sha256_gather SASS, a pair: {pipes_text(pipes)}")
     for n in sorted({*GATHER_SIZES, largest}):
         n_lits = max(2, n)
         words = rng.integers(0, 2**32, size=(n_lits, 8), dtype=np.uint32)
@@ -1034,8 +1148,9 @@ def gather_kernel_phase(n_sms, max_mhz, largest):
                   f"a call launched eagerly), plain torch "
                   f"{plain_ms:.6f} ms; bound {op_ms:.6f} ms by "
                   f"{OPS_PER_PAIR * n} operations, {byte_ms:.6f} ms by "
-                  f"{GATHER_BYTES_PER_PAIR * n} bytes; no PyTorch call "
-                  f"computes SHA-256, so no library time")
+                  f"{GATHER_BYTES_PER_PAIR * n} bytes; "
+                  f"{compiled_text(pipes, n, n_sms, max_mhz)}; no PyTorch "
+                  f"call computes SHA-256, so no library time")
     return max_err, timed[largest]
 
 
@@ -1134,7 +1249,9 @@ def epoch_phase():
     check(snapshot.get("epoch_sweep_dispatches") == 1,
           f"epoch: {snapshot.get('epoch_sweep_dispatches')} sweep "
           f"dispatches, expected 1")
-    check(launches > 0, "epoch: the sweep launched no epoch_sweep kernel")
+    check(launches == EPOCH_SWEEP_LAUNCHES,
+          f"epoch: the sweep launched {launches} epoch_sweep kernels, "
+          f"expected {EPOCH_SWEEP_LAUNCHES}")
     check(snapshot.get("epoch_guard_samples") == 1
           and not snapshot.get("epoch_guard_mismatches"),
           "epoch: the guard did not hold every lane once")
@@ -1286,6 +1403,9 @@ def epoch_kernel_phase(n_sms, max_mhz):
 
         def run(c=cols):
             sweep(c, scalars, statics, out=lanes)
+        launches = sweep.launches
+        run()
+        launches = sweep.launches - launches
         kernel_ms = graph_ms(run, 50)
         eager_ms = cuda_ms(run, 50)
         plain_ms = cuda_ms(
@@ -1300,18 +1420,18 @@ def epoch_kernel_phase(n_sms, max_mhz):
         n_bytes = sweep_bytes(cols, lanes)
         byte_ms = n_bytes / MEMORY_BYTES_PER_S * 1e3
         op_ms = EPOCH_OPS_PER_LANE * n / (
-            n_sms * SCHEDULER_LANES_PER_SM_PER_CLOCK * max_mhz * 1e6) * 1e3
+            n_sms * ISSUE_LANES_PER_SM_PER_CLOCK * max_mhz * 1e6) * 1e3
         a_byte_ms = sweep_bytes(a_cols, a_lanes) / MEMORY_BYTES_PER_S * 1e3
-        print(f"{n} lanes, phase0 sweep (3 launches): epoch_sweep "
+        print(f"{n} lanes, phase0 sweep ({launches} launches): epoch_sweep "
               f"{kernel_ms:.6f} ms from a CUDA graph, {eager_ms:.6f} ms "
               f"launched eagerly; with {EPOCH_PROPOSERS} proposers taking "
-              f"every attester's atomic, against {spread_ms:.6f} ms with "
+              f"every attester's reward, against {spread_ms:.6f} ms with "
               f"a proposer a lane; plain torch {plain_ms:.6f} ms; bound "
               f"{byte_ms:.6f} ms by {n_bytes} bytes "
               f"({n_bytes / n:.0f} a lane), {op_ms:.6f} ms by "
               f"{EPOCH_OPS_PER_LANE * n} operations; altair sweep "
-              f"{altair_ms:.6f} ms (bound {a_byte_ms:.6f} ms by bytes); "
-              f"no PyTorch call computes the sweep, so no library time")
+              f"{altair_ms:.6f} ms (bound {a_byte_ms:.6f} ms by bytes); no "
+              f"PyTorch call computes the sweep, so no library time")
         if n == EPOCH_TIMED:
             timed = dict(ms=kernel_ms, plain_ms=plain_ms,
                          bound_ms=max(byte_ms, op_ms),
@@ -2144,6 +2264,8 @@ ORACLE_SAMPLE = 16                # sets of a larger flush the oracle checks
 K1_BLOCK = (8, 128)               # a phase0 block's committee sums
 K1_RAGGED = (64, 2048)            # ragged lists up to MAX_VALIDATORS_PER_COMMITTEE
 K1_G2 = 1024                      # one G2 segment (a flush's signature sum)
+K1_FOLD = (14, 16)                # the block fold's signature sum: 14 live of 16
+K1_BLOB = (6, 8)                  # the blob verify's lincomb sum: 6 live of 8
 K1_PLAIN_SEGMENTS = 8             # plain halving segments a call on the card
 K2_SIZES = (1024, 16384)
 K2_SAMPLE = 1024                  # rows of a larger K2 run the plain version holds
@@ -2299,6 +2421,22 @@ def _segments(group, lengths, width):
                  for c in pack(flat, CARD))
 
 
+def k1_levels(width, g2=False):
+    """(chain, passes) of a K1 segment of `width` points: its dependent Fq
+    products (five levels a round, csrc/bls381_segment.cuh) and the level
+    passes its batches take (SEG_BATCH_G1 32 or SEG_BATCH_G2 10 adds a
+    batch, a level's products or Karatsuba parts over 128 lanes)."""
+    parts = (12, 12, 7, 6, 6) if g2 else (5, 4, 3, 2, 2)
+    batch = 10 if g2 else 32
+    passes, h = 0, width // 2
+    while h >= 1:
+        for b0 in range(0, h, batch):
+            nb = min(batch, h - b0)
+            passes += sum(-(-p * nb // 128) for p in parts)
+        h //= 2
+    return 5 * int(math.log2(width)), passes
+
+
 def _fold_chain_plain(aggP, cbits, hP, sP):
     """The plain versions of the fold's chain on the card: the lanes, the
     Miller loops and their product without the final exponentiation."""
@@ -2356,8 +2494,9 @@ def _legs_against_host(pairs, aggs, coeffs, pre, sigs):
 @phase("flush kernels")
 def flush_kernels_phase(n_sms, max_mhz):
     """The flush's kernels against their plain torch versions on the card,
-    bit for bit: K1 (segment sums) on G1 at a block's 8 x 128 and 64 ragged
-    segments up to 2,048, on G2 at one segment of 1,024; K2 (the G1
+    bit for bit: K1 (segment sums) on G1 at a block's 8 x 128, 64 ragged
+    segments up to 2,048 and the blob verify's 6 of 8, on G2 at one
+    segment of 1,024 and the block fold's 14 of 16; K2 (the G1
     ladder) at 1,024 and 16,384 lanes of 64 bits (the larger on a seeded
     sample of K2_SAMPLE rows) and at K2_SPLIT_SIZES rows split by GLV
     (the blob verify's 8, and 1,024 led by GLV_EDGES); the G2 ladder at
@@ -2366,7 +2505,8 @@ def flush_kernels_phase(n_sms, max_mhz):
     it at k = 16 (14 sets and two padded rows) and 256, valid and with
     one bad set.  At k = 1,024 the verdict and the 1,025 legs against the
     host's integer arithmetic.  Then the times of the block's
-    shapes and of K2 at the blob verify's from a CUDA graph, beside the
+    shapes, of K1 at its three paths' and of K2 at the blob verify's from a
+    CUDA graph (K1's with its dependent chain and level passes), beside the
     plain versions' and the operation bounds (K4's with its cofactor
     counted by the psi method, the ladders' by their windowed method),
     K4's longest leg, the cofactor kernel on the flush's hash points,
@@ -2382,6 +2522,8 @@ def flush_kernels_phase(n_sms, max_mhz):
     cases[f"G1 {K1_RAGGED[0]} ragged up to {K1_RAGGED[1]}"] = (
         "g1", ragged, K1_RAGGED[1])
     cases[f"G2 1 x {K1_G2}"] = ("g2", [K1_G2], K1_G2)
+    cases[f"G2 1 x {K1_FOLD[1]}"] = ("g2", [K1_FOLD[0]], K1_FOLD[1])
+    cases[f"G1 1 x {K1_BLOB[1]}"] = ("g1", [K1_BLOB[0]], K1_BLOB[1])
     segs = {}
     for name, (group, lengths, width) in cases.items():
         pt = _segments(group, lengths, width)
@@ -2500,13 +2642,6 @@ def flush_kernels_phase(n_sms, max_mhz):
     # times at the block's shapes: its committee sums, a full block's
     # weighting sweep, its flush's fold (14 sets, 16 lanes)
     times = {}
-    pt = segs["G1 8 x 128"]
-    n_seg, width = K1_BLOCK
-    times["bls381_segment_sum"] = (
-        graph_ms(lambda: bls381_cuda.segment_sum(pt), 10),
-        cuda_ms(lambda: _plain_halving(curve_torch.F1, pt), 1),
-        *op_bound(n_seg * (width - 1) * G1_ADD_PRODUCTS,
-                  (n_seg * width + n_seg) * 36 * 4, n_sms, max_mhz))
     pts = _segments("g1", [1] * K2_TIMED, 1)
     pt1 = tuple(c[:, 0] for c in pts)
     scal = [int(c) for c in np.random.default_rng([SEED, 13]).integers(
@@ -2603,6 +2738,47 @@ def flush_kernels_phase(n_sms, max_mhz):
          K4_SIZES[1][1] + 1: bls381_cuda.fold_lanes(
              *fold_in[K4_SIZES[1][1]], consts)}, k + 1, max_err, n_sms,
         max_mhz)
+    # K1 at its paths' shapes: the block's committee sums, the fold's
+    # signature sum, the blob verify's lincomb sum
+    for label, (g2, live, width) in {
+            f"G1 {K1_BLOCK[0]} x {K1_BLOCK[1]}, the block's committee sums": (
+                False, K1_BLOCK[0] * K1_BLOCK[1], K1_BLOCK[1]),
+            f"G2 1 x {K1_FOLD[1]}, the fold's signature sum": (
+                True, K1_FOLD[0], K1_FOLD[1]),
+            f"G1 1 x {K1_BLOB[1]}, the blob verify's lincomb sum": (
+                False, K1_BLOB[0], K1_BLOB[1])}.items():
+        pt = segs[label.split(",")[0]]
+        F = curve_torch.F2 if g2 else curve_torch.F1
+        n_seg = pt[0].shape[0]
+        add = G2_ADD_PRODUCTS if g2 else G1_ADD_PRODUCTS
+        ms = graph_ms(lambda: bls381_cuda.segment_sum(pt), 10)
+        # the kernel alone on packed words, each launch on a fresh copy (it
+        # sums in place), less the copy
+        words = bls381_cuda._words(torch.stack(pt, dim=2))
+        buf = words.clone()
+        out = torch.empty((n_seg,) + tuple(words.shape[2:]),
+                          dtype=words.dtype, device=CARD)
+        k1 = cuda_build.build().segment_sum
+        copy_ms = graph_ms(lambda: buf.copy_(words), 10)
+        alone_ms = graph_ms(lambda: (buf.copy_(words),
+                                     k1(g2, buf, width, out, n_seg)),
+                            10) - copy_ms
+        plain_ms = cuda_ms(lambda: _plain_halving(F, pt), 1)
+        bound_ms, bound_by = op_bound(
+            (live - n_seg) * add,
+            (n_seg * width + n_seg) * (72 if g2 else 36) * 4, n_sms,
+            max_mhz)
+        chain, passes = k1_levels(width, g2)
+        if not g2 and n_seg == K1_BLOCK[0]:
+            times["bls381_segment_sum"] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"bls381_segment_sum {label}: {ms:.6f} ms from a CUDA graph "
+              f"through the wrapper (its limb and word conversions with "
+              f"it), {alone_ms:.6f} ms the kernel alone; plain torch "
+              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+              f"({live - n_seg} live adds); dependent chain {chain} Fq "
+              f"products over {passes} product level passes (a thread an "
+              f"add: {int(math.log2(width)) * add}); "
+              f"{alone_ms * 1e3 / passes:.3f} us a pass alone", flush=True)
     for name, (ms, plain_ms, bound_ms, bound_by) in times.items():
         print(f"{name} at the block's shape: {ms:.6f} ms from a CUDA "
               f"graph, plain torch {plain_ms:.6f} ms, bound {bound_ms:.6f} "
@@ -3247,7 +3423,7 @@ def main(argv=None):
             ("bls381_field", "bls381_field.cu",
              "consensus_specs_tpu/ops/fq.py:265",
              bls_launches["bls381_field"], bls_err, bls_times),
-            ("bls381_segment_sum", "bls381_msm.cu",
+            ("bls381_segment_sum", "bls381_segment.cuh",
              "consensus_specs_tpu/ops/g1_sweep.py:84",
              sig_launches["bls381_segment_sum"], flush_err, flush_times),
             ("bls381_g1_ladder", "bls381_msm.cu",

@@ -16,9 +16,8 @@ the port's other kernels (ops/cuda_build.py):
   of csrc/bls381_ladder.cuh;
 - csrc/bls381_field.cu, one elementwise kernel over the field, tower and
   curve ops: `field_op`;
-- csrc/bls381_msm.cu, the segment sums of G1 or G2 points (`segment_sum`,
-  K1) and the G1 ladder (`g1_ladder`, K2, the same windowed body with the
-  GLV split);
+- csrc/bls381_msm.cu, the G1 ladder (`g1_ladder`, K2, the same windowed
+  body with the GLV split);
 - csrc/bls381_fold.cu, the lanes and the last pair of a folded signature
   flush (`fold_lanes`, K4: a set's three legs as kernels of their own on
   three streams, its cofactor by bls381_cofactor.cu's kernel; a K1 launch
@@ -26,7 +25,9 @@ the port's other kernels (ops/cuda_build.py):
 - csrc/bls381_cofactor.cu, G2 cofactor clearing by the psi endomorphism
   with the affine result (`clear_cofactor_g2`, a thread a point);
 - csrc/bls381_check.cu, the pairing check in one launch, four warps a job
-  (`pairing_check`).  These two replace the ladder, the field kernel and
+  (`pairing_check`), and on the same levels the segment sums of G1 or G2
+  points (`segment_sum`, K1, a block a segment; bodies
+  csrc/bls381_segment.cuh).  These two replace the ladder, the field kernel and
   the pairing kernel's two launches on the check-by-check path; the
   pairing's launches stay for the signature flush, the ladder for the
   staged multi-exponentiation;
@@ -254,8 +255,9 @@ def segment_sum(pt):
     [s, L, 2, 32] (G2) int64 limbs with L a power of two, -> the sum of
     each segment, (X, Y, Z) [s, 32] or [s, 2, 32], Jacobian, equal to the
     plain version's coordinates bit for bit (the same pair order).  The
-    kernel on CUDA tensors (one thread block a segment, halving in place in
-    a scratch copy), the plain version (`halving_sum`) on CPU tensors."""
+    kernel on CUDA tensors (one block of four warps a segment, halving in
+    place in a scratch copy, a round's adds on five product levels), the
+    plain version (`halving_sum`) on CPU tensors."""
     X = pt[0]
     g2 = X.dim() == 4
     suffix = (2, 32) if g2 else (32,)
@@ -594,7 +596,7 @@ pippenger_g1.launches = 0
 pippenger_g1.plain_calls = 0
 
 # every wrapper of the BLS kernels, by kernel name (chip_smoke.py reads
-# and resets their counts); K1 and K2 share csrc/bls381_msm.cu
+# and resets their counts); K1 sits in csrc/bls381_check.cu
 WRAPPERS = {"bls381_pairing": (miller, product_final),
             "bls381_g2": (g2_ladder,), "bls381_field": (field_op,),
             "bls381_segment_sum": (segment_sum,),

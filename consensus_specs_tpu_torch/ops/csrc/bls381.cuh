@@ -646,17 +646,6 @@ BLS_FN void g1_ladder_elem(const uint32_t* p, const uint8_t* bits,
   bls_store(out, pt_ladder(bls_load<pt<fp>>(p), bits, nbits));
 }
 
-// one step of a segment's halving sum: buf[i] <- buf[i] + buf[i + h], with
-// points of pt<F> (36 words for G1, 72 for G2).  Rounds h = L/2, ..., 1
-// leave the segment's sum in buf[0], adding in the plain version's pair
-// order (curve_torch.point_sum_tree, the reference's halving sweeps).
-template <typename F>
-BLS_FN void segment_step_elem(uint32_t* buf, int64_t i, int64_t h) {
-  const int64_t w = sizeof(pt<F>) / 4;
-  bls_store(buf + i * w, pt_add(bls_load<pt<F>>(buf + i * w),
-                                bls_load<pt<F>>(buf + (i + h) * w)));
-}
-
 // the fold's affine constants, in words: the G1 and G2 generators (the
 // substitutes at infinity) and -G1 (the base of the folded signature leg);
 // the fold's legs are in bls381_fold.cuh

@@ -32,17 +32,35 @@
 // rate, registers, a block's lanes and shared memory (check_smem, about
 // 18 KB a job).
 //
+// K1, the segment sums (`bls381_segment_sum_launch`), replaces
+// consensus_specs_tpu/ops/g1_sweep.py:84 `_jax_sweep` (a [segments, L]
+// Jacobian tensor reduced by log2(L) batched `point_add` launches at
+// halving shapes) and the halving sum of ops/msm.py:324 `g2_multi_exp`
+// (`_tree_sum_host`), in the reference's pair order.  What bounds it: the
+// chain of dependent products, not the multiplies (a round of L/2 G1 adds
+// is 8 L products, a 128-point segment's 127 adds 2,032).  Its depth is
+// log2(L) rounds of five product levels (eight with a doubling), one Fq
+// product a lane and a level, with a combine level of additions after
+// most, against 16 dependent products a round (G2 43) in the
+// thread-an-add design before it; a 128-point G1 segment is 43 product
+// passes, a 16-point G2 segment 20.  A block a segment, so a block's 8
+// committee sums use 8 SMs.
+//
 // Layouts (int32 tensors read as uint32 words, Montgomery form): g1
 // [b, k, 2, 12] (xp, yp), g2 [b, k, 2, 2, 12] (xq, yq) affine, skip uint8
 // [b, k]; tq [b, k, 72] is scratch for the twist points; writes prod
-// [b, 12, 12] and ok uint8 [b].
+// [b, 12, 12] and ok uint8 [b].  K1 reads and overwrites buf [segments,
+// L, point] (a G1 point (X, Y, Z) 36 words, a G2 point 72) and writes out
+// [segments, point].
 //
 // This file also holds the kernels and C entries of the pairing's two
-// launches (bodies and design in bls381_pairing.cuh), which
-// run the same levels: bls381_check.cuh defines the levels' gate, so the
-// library holds one translation unit that includes it.
+// launches (bodies and design in bls381_pairing.cuh) and of K1, the segment
+// sums (bodies and design in bls381_segment.cuh), which run the same
+// levels: bls381_check.cuh defines the levels' gate, so the library holds
+// one translation unit that includes it.
 
 #include "bls381_pairing.cuh"
+#include "bls381_segment.cuh"
 
 namespace {
 
@@ -87,7 +105,42 @@ bls381_final_kernel(const uint32_t* __restrict__ f, int64_t k, int do_final,
                     prod + job * RQ12_W, ok + job);
 }
 
+// K1: a block a segment of len points of F (fp: G1, fp2: G2), summed in
+// place in buf, its sum written to out
+template <typename F>
+__global__ void __launch_bounds__(CHECK_LANES)
+bls381_segment_sum_kernel(uint32_t* buf, int64_t len,
+                          uint32_t* __restrict__ out) {
+  __shared__ seg_smem<F> s;
+  constexpr int64_t w = 3 * seg_field<F>::FW;
+  segment_job<F>(&s, buf + static_cast<int64_t>(blockIdx.x) * len * w, len,
+                 out + static_cast<int64_t>(blockIdx.x) * w);
+}
+
 }  // namespace
+
+// Plain C entry of K1: `segments` segments of `len` points each (G2 when g2
+// is nonzero, else G1), a power of two; buf is overwritten.  Launches on
+// `stream` and returns cudaGetLastError() as an int (cudaErrorInvalidValue
+// for a length that is not a power of two).
+extern "C" int bls381_segment_sum_launch(int g2, void* buf, int64_t len,
+                                         void* out, int64_t segments,
+                                         void* stream) {
+  if (len < 1 || (len & (len - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (segments > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned int blocks = static_cast<unsigned int>(segments);
+    if (g2) {
+      bls381_segment_sum_kernel<fp2><<<blocks, CHECK_LANES, 0, s>>>(
+          static_cast<uint32_t*>(buf), len, static_cast<uint32_t*>(out));
+    } else {
+      bls381_segment_sum_kernel<fp><<<blocks, CHECK_LANES, 0, s>>>(
+          static_cast<uint32_t*>(buf), len, static_cast<uint32_t*>(out));
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry: b jobs of k >= 1 pairs, one block of four warps a job.
 // Launches on `stream` and returns cudaGetLastError() as an int.

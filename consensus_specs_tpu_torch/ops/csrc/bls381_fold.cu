@@ -11,7 +11,7 @@
 //     coefficient), affine into the pairs' G1 words (the G1 generator and
 //     skip where w_i is infinity);
 //   the caller's stream: fold_sw, sw_i = c_i sig_i (G2, 64 bits,
-//     Jacobian), then bls381_msm.cu's segment_sum<fp2> sums sw into S (one
+//     Jacobian), then K1 (bls381_check.cu) over G2 sums sw into S (one
 //     segment), then fold_tail: one thread writes the last pair (-G1,
 //     affine S), skipped when S is infinity.
 //

@@ -9,7 +9,7 @@
 //     affine words as the set's Miller Q and an infinity flag, then
 //     `fold_h_elem` puts the G2 generator in where the flag is set;
 //   sw_i = c_i sig_i (G2, 64 bits, bls381.cuh's ladder), written Jacobian
-//     for the signature sum (bls381_msm.cu's segment sum; `fold_sw_elem`).
+//     for the signature sum (K1, bls381_check.cu's segment sum; `fold_sw_elem`).
 //
 // The set's pair is skipped when w_i or H_i is infinity, and the generator
 // of that side (bls381.cuh FoldConst) stands in for it.  Each of the w and

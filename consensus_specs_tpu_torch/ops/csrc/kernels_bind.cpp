@@ -1,7 +1,7 @@
 // PyTorch binding of the port's kernels (sha256_pairs.cu, sha256_gather.cu,
 // epoch_sweep.cu, bls381_g2.cu, bls381_field.cu, bls381_msm.cu,
 // bls381_fold.cu, bls381_cofactor.cu, bls381_check.cu with the pairing's
-// two launches, bls381_pippenger.cu), for
+// two launches and the segment sums, bls381_pippenger.cu), for
 // torch.utils.cpp_extension.load.  The one file of the port that includes
 // PyTorch's headers.  The Python wrappers (ops/sha256_cuda.py,
 // ops/epoch_sweep_cuda.py, ops/bls381_cuda.py) check shape, dtype, device,
@@ -83,7 +83,7 @@ void sha256_gather(torch::Tensor pool, const torch::Tensor& idx_l,
 }
 
 // One epoch sweep on the current stream of `like`'s card.  `params` is the
-// host int64 array of epoch_sweep.cu's Param slots (device addresses,
+// host int64 array of epoch_sweep.cuh's Param slots (device addresses,
 // sizes, switches and values); returns the number of kernels launched.
 int64_t epoch_sweep(const torch::Tensor& params, const torch::Tensor& like) {
   const c10::cuda::CUDAGuard guard(like.device());
@@ -252,7 +252,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sha256_gather", &sha256_gather,
         "SHA-256 of chunk pairs gathered by index, written in place");
   m.def("epoch_sweep", &epoch_sweep,
-        "the per-validator epoch sweep, up to three launches");
+        "the per-validator epoch sweep, up to two launches");
   m.def("bls381_field", &bls381_field,
         "a BLS12-381 field, tower or curve op, elementwise");
   m.def("bls381_ladder", &bls381_ladder, "the windowed G2 ladder");
@@ -260,7 +260,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bls381_final", &bls381_final,
         "a job's Miller product and final exponentiation");
   m.def("bls381_segment_sum", &bls381_segment_sum,
-        "halving sums of point segments, one block a segment");
+        "halving sums of point segments, four warps a segment (K1)");
   m.def("bls381_g1_ladder", &bls381_g1_ladder, "the windowed G1 ladder (K2)");
   m.def("bls381_fold_w", &bls381_fold_w,
         "the folded flush's weighting leg, affine");

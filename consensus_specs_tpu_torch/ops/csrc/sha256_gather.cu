@@ -22,7 +22,8 @@
 //
 // What bounds it: integer work, as for sha256_pairs.cu.  A pair moves 104
 // bytes (two 4-byte indices, two gathered 32-byte rows, one 32-byte digest)
-// and costs the same two compressions (about 2,288 instructions).  The
+// and costs the same two compressions (at least 2,288 instructions; as
+// compiled 2,408 in its SASS, 2,047 on the integer pipe, which holds it).  The
 // gathered rows are random, but each is a whole 32-byte sector (two 16-byte
 // loads), so the gather costs no extra memory transactions per byte.
 //   - one thread per pair, the two compressions in registers

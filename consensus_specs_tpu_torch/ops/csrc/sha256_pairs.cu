@@ -12,8 +12,15 @@
 // 32 out) and costs two compressions of 64 rounds: about 3,900 32-bit
 // operations of the FIPS 180-4 formulas, at least 2,288 instructions with
 // Hopper's three-input LOP3 and IADD3 and the SHF rotate.  So the SMs' issue
-// rate is the limit long before the memory rate.  The design spends nothing
-// on data movement beyond the one read and one write:
+// rate (128 lanes an SM a clock) is the limit long before the memory rate;
+// the 608 logic ops among them, which only the integer pipe runs (64
+// lanes), ask less.  As compiled, the SASS (cuobjdump, counted by
+// chip_smoke.py `sass_pipes`) is 2,400 instructions a pair, 2,042 of them
+// on the integer pipe and 250 IMAD on the FMA pipe, so the integer pipe
+// holds it: at 2^20 pairs the kernel takes about 93% of that pipe's time
+// and about twice the issue bound (NVIDIA H100 80GB HBM3, 700 W).  Moving
+// adds and shifts onto their IMAD forms is the way under it.  The design
+// spends nothing on data movement beyond the one read and one write:
 //   - one thread per pair, the two compressions in registers
 //     (sha256_core.cuh, shared with the gather-hash kernel);
 //   - each thread loads its 64-byte block as four 16-byte loads and stores its

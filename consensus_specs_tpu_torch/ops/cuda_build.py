@@ -220,7 +220,7 @@ def _build_ctypes():
 
     def segment_sum(g2, buf, length, out, segments):
         with torch.cuda.device(buf.device):
-            _check("bls381_msm (segment sum)", segment_fn(
+            _check("bls381_check (segment sum)", segment_fn(
                 int(g2), buf.data_ptr(), length, out.data_ptr(), segments,
                 stream_of(buf)))
 

@@ -5,7 +5,7 @@ sums of a signature flush (sigpipe/cache.py) are packed into one padded
 ragged-segment tensor, [segments, length] Jacobian limbs with infinity
 padding and both axes rounded up to powers of two as in the reference, and
 each segment is summed by halving: on the card by the segment-sum kernel
-(ops/csrc/bls381_msm.cu, one thread block a segment), on the CPU by its
+(K1, ops/csrc/bls381_check.cu, one block of four warps a segment), on the CPU by its
 plain version (bls381_cuda.halving_sum, log2(length) batched
 `curve_torch.point_add` calls).  The pair order is the reference's
 `_jax_sweep`, so the sums are its Jacobian points.

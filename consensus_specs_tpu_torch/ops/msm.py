@@ -22,7 +22,7 @@ Counterpart of consensus_specs_tpu/ops/msm.py:
 - `g2_multi_exp(points, scalars)`: sum_i s_i P_i over G2, the folded
   signature sum of a staged flush (sigpipe/fold.py): the G2 ladder
   (ops/csrc/bls381_g2.cu) over the same bit rows, then one segment sum
-  (ops/csrc/bls381_msm.cu, K1) over the ladder's outputs, in the
+  (K1, ops/csrc/bls381_check.cu) over the ladder's outputs, in the
   reference's halving order.
 
 All run on the device of `consensus_specs_tpu_torch.get_device()`, the

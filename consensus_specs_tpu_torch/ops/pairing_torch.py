@@ -23,7 +23,7 @@ pair's Miller loop, four warps a pair; launch 2: a job's product and final
 exponentiation, four warps a job; both in the same file, on the check's
 levels, bodies ops/csrc/bls381_pairing.cuh),
 for the fold first ops/csrc/bls381_fold.cu with a segment sum of
-ops/csrc/bls381_msm.cu, and runs the plain functions here on CPU
+ops/csrc/bls381_check.cu, and runs the plain functions here on CPU
 tensors.  The reference's chunked mode, row buckets and `warmup` are XLA
 compile and dispatch concerns with no counterpart.  Its `PAIRING_MODE` stays
 as the switch the signature pipeline reads (sigpipe/fold.py

@@ -6,16 +6,15 @@ ladder, ops/csrc/bls381_msm.cu) and the G2 ladder (ops/csrc/bls381_g2.cu).
                                        [--time-only NAME=CSRC] [--sass DIR]
 
 Builds this tree's two sources, and with --parent the same two files of
-another checkout (the bit-by-bit ladder before the windowed body), and
-with each --other those of another csrc directory (a variant of the
-windowed body; with --time-only one whose outputs are not held, a variant
-that leaves a part out to cost it), with nvcc (sm_90a, -Xptxas=-v, one nvcc a file, all
-started together) into a library a tree, loaded with ctypes; prints
-ptxas's report of the ladder kernels and of every function that spills;
-with --sass, writes each tree's SASS (cuobjdump -sass) to DIR/NAME.sass
-and prints, for each function of the G2 ladder's object, its
-instructions and its local-memory loads and stores.  Then, at the paths'
-shapes:
+another checkout (the bit-by-bit ladder before the windowed body), with
+each --other those of another csrc directory (a variant of the windowed
+body) and with each --time-only one whose outputs are not held
+(scripts/torch_ab_harness.py: the options, builds, turns and timing it
+shares with torch_k1_sweep_ab.py); prints ptxas's report of the ladder
+kernels and of every function that spills; with --sass, writes each
+tree's SASS (cuobjdump -sass) to DIR/NAME.sass and prints, for each
+function of the G2 ladder's object, its instructions and its local-memory
+loads and stores.  Then, at the paths' shapes:
 
 - K2 at 256 rows of 64-bit weights (chip_smoke.py K2_TIMED: a full
   block's weighting sweep);
@@ -30,57 +29,27 @@ this tree's outputs equal their plain versions (curve_torch.windowed_ladder,
 glv_ladder) bit for bit, every tree's outputs equal the host oracle's
 multiples (compressed bytes), and each launch is timed by CUDA events from
 a CUDA graph on packed words, the trees in turn and then in the reverse
-order (parent, this tree, this tree, parent).  Prints the card's name and power limit, then a line a tree,
-shape and turn.  Needs a CUDA card; exits non-zero without one or on any
+order (parent, this tree, this tree, parent).  Prints the card's name and
+power limit, then a line a tree, shape and turn.  Needs a CUDA card; exits non-zero without one or on any
 difference.
 """
-import argparse
 import ctypes
 import os
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-from consensus_specs_tpu_torch.crypto import curve as cv  # noqa: E402
-from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c  # noqa: E402
-from consensus_specs_tpu_torch.crypto.fields import R  # noqa: E402
-from consensus_specs_tpu_torch.ops import cuda_build, fq  # noqa: E402
-from consensus_specs_tpu_torch.ops import curve_torch as ct  # noqa: E402
+import torch_ab_harness as ab
+from consensus_specs_tpu_torch.crypto import curve as cv
+from consensus_specs_tpu_torch.crypto import hash_to_curve as h2c
+from consensus_specs_tpu_torch.crypto.fields import R
+from consensus_specs_tpu_torch.ops import fq
+from consensus_specs_tpu_torch.ops import curve_torch as ct
 
 SEED = 2026
 SOURCES = ("bls381_msm.cu", "bls381_g2.cu")
 P, I64 = ctypes.c_void_p, ctypes.c_int64
-
-
-def build(csrc, out_dir):
-    """The two ladder sources of `csrc` as one ctypes library in out_dir:
-    (library, ptxas lines of the ladder kernels)."""
-    from torch.utils import cpp_extension
-    nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
-                        "nvcc")
-    os.makedirs(out_dir, exist_ok=True)
-    objs = [os.path.join(out_dir, f + ".o") for f in SOURCES]
-    procs = [cuda_build._nvcc(nvcc, ["-c", "-Xcompiler", "-fPIC", "-o", o,
-                                     os.path.join(csrc, f)])
-             for f, o in zip(SOURCES, objs)]
-    report = "".join(cuda_build._wait(p) for p in procs)
-    lib_path = os.path.join(out_dir, "libladders.so")
-    cuda_build._wait(cuda_build._nvcc(nvcc, ["-shared", "-o", lib_path,
-                                             *objs]))
-    lines = report.splitlines()
-    keep = [" | ".join(ln.strip() for ln in lines[i:i + 4])
-            for i, ln in enumerate(lines)
-            if "ladder" in ln and "Compiling entry" in ln]
-    keep += [f"{a.split()[-1]}: {b.strip()}" for a, b in zip(lines, lines[1:])
-             if "Function properties" in a and "spill" in b
-             and " 0 bytes spill stores" not in b]
-    return ctypes.CDLL(lib_path), keep
 
 
 class Tree:
@@ -89,8 +58,9 @@ class Tree:
     def __init__(self, name, csrc):
         self.name = name
         self.new = os.path.exists(os.path.join(csrc, "bls381_ladder.cuh"))
-        self.lib, self.ptxas = build(
-            csrc, os.path.join(ROOT, "build", "ladder_ab", name))
+        self.lib, self.objs, self.ptxas = ab.build(
+            csrc, SOURCES, os.path.join(ab.ROOT, "build", "ladder_ab", name),
+            ("ladder",))
         self.lib.bls381_g1_ladder_launch.argtypes = (
             [P, P, I64, P, I64, ctypes.c_int, P] if self.new
             else [P, P, I64, P, I64, P])
@@ -116,13 +86,7 @@ class Tree:
 def sass_counts(tree, path):
     """Write the SASS of the tree's G2 ladder object to `path` and print
     each function's instructions, local loads (LDL) and stores (STL)."""
-    from torch.utils import cpp_extension
-    tool = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
-                        "cuobjdump")
-    obj = os.path.join(ROOT, "build", "ladder_ab", tree.name,
-                       "bls381_g2.cu.o")
-    sass = subprocess.run([tool, "-sass", obj], capture_output=True,
-                          text=True, check=True).stdout
+    sass = ab.cuobjdump_sass(tree.objs[SOURCES.index("bls381_g2.cu")])
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         f.write(sass)
@@ -142,27 +106,6 @@ def sass_counts(tree, path):
     for fn, (n, ldl, stl) in counts.items():
         print(f"  sass {tree.name} {fn}: {n} instructions, {ldl} LDL, "
               f"{stl} STL", flush=True)
-
-
-def graph_ms(fn, reps):
-    """Mean ms of fn() over `reps` calls captured in one CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _multiples(gen, n, tag):
@@ -194,33 +137,13 @@ def shapes():
 
 
 def main():
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--parent", help="a checkout of the parent tree")
-    parser.add_argument("--other", action="append", default=[],
-                        metavar="NAME=CSRC", help="another csrc directory")
+    parser = ab.parser(__doc__.split("\n\n")[0])
     parser.add_argument("--sass", help="write each tree's SASS here")
-    parser.add_argument("--time-only", action="append", default=[],
-                        metavar="NAME=CSRC", help="a variant timed, not held "
-                        "(one that computes something else, to cost a part)")
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("no CUDA card")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         "--id=0"], capture_output=True, text=True).stdout.strip(), flush=True)
-    dirs = {"this tree": cuda_build.CSRC}
-    if args.parent:
-        dirs["parent"] = os.path.join(args.parent, "consensus_specs_tpu_torch",
-                                      "ops", "csrc")
-    dirs.update(o.split("=", 1) for o in args.other + args.time_only)
-    unheld = {o.split("=", 1)[0] for o in args.time_only}
-    with ThreadPoolExecutor(len(dirs)) as pool:   # every tree's nvcc at once
-        builds = {name: pool.submit(Tree, name.replace(" ", "_"), csrc)
-                  for name, csrc in dirs.items()}
-        trees = {name: b.result() for name, b in builds.items()}
-    for name, tree in trees.items():
-        print(f"ptxas, {name}:", *tree.ptxas, sep="\n  ", flush=True)
-        if args.sass:
+    ab.card()
+    trees, unheld = ab.trees(args, Tree)
+    if args.sass:
+        for tree in trees.values():
             sass_counts(tree, os.path.join(args.sass, tree.name + ".sass"))
     cases = {}
     for label, (g2, pts, scalars, nbits, reps) in shapes().items():
@@ -255,12 +178,12 @@ def main():
               f"{', '.join(n for n in trees if n not in unheld)}; this tree "
               f"== its plain version bit for bit", flush=True)
         cases[label] = (g2, words, bits, outs, split, reps)
-    names = sorted(trees, key=lambda name: name != "parent")
-    order = names + names[::-1]
+    order = ab.turns(trees)
     for label, (g2, words, bits, outs, split, reps) in cases.items():
         for turn, name in enumerate(order):
             tree, b, out = trees[name], bits[name].contiguous(), outs[name]
-            ms = graph_ms(lambda: tree.launch(g2, words, b, out, split), reps)
+            ms = ab.graph_ms(lambda: tree.launch(g2, words, b, out, split),
+                              reps)
             print(f"{label}, {name} (turn {turn + 1}): {ms:.6f} ms from a "
                   f"CUDA graph, {reps} launches", flush=True)
 

@@ -10,10 +10,11 @@ compiler, loops the kernels' per-element bodies (`field_op_elem`,
 bit-by-bit ladder of K4's legs), the windowed ladder's rows
 (`ladder_row` of `bls381_ladder.cuh`, the body of K2 and the G2 ladder:
 split G1 rows, G1 and G2 rows, against `curve_torch.glv_ladder` and
-`windowed_ladder`), `segment_step_elem` in the segment-sum
-kernel's rounds, the fold's legs `fold_w_elem`, `cofactor_elem` then
-`fold_h_elem` and `fold_sw_elem` (`bls381_fold.cuh`) and `fold_tail_elem`
-around a segment sum) over seeded inputs, and holds every output against
+`windowed_ladder`), K1's levels (`segment_job` of `bls381_segment.cuh`,
+the body of the segment-sum kernel in `bls381_check.cu`), the fold's
+legs `fold_w_elem`, `cofactor_elem` then `fold_h_elem` and
+`fold_sw_elem` (`bls381_fold.cuh`) and `fold_tail_elem` around a segment
+sum) over seeded inputs, and holds every output against
 the plain version (`bls381_cuda.FIELD_OPS`, `curve_torch.point_scalar_mul`,
 `bls381_cuda.halving_sum`, `pairing_torch._fold_lanes_plain`) bit for bit,
 so the kernels' arithmetic is checked on every run of the tests, not only
@@ -64,6 +65,7 @@ HARNESS = r"""
 #include "bls381_fold.cuh"
 #include "bls381_pippenger.cuh"
 #include "bls381_ladder.cuh"
+#include "bls381_segment.cuh"
 #include <stdlib.h>
 extern "C" void field(int op, const uint32_t* a, const uint32_t* b,
                       uint32_t* out, int64_t n) {
@@ -106,19 +108,19 @@ extern "C" void windowed(int g2, int split, const uint32_t* p,
     free(tab);
   }
 }
-// the segment-sum kernel's rounds, one segment after another
+// K1's body (bls381_check.cu's segment-sum kernel), one segment after
+// another, each level's lanes in turn
 extern "C" void segment_sum(int g2, uint32_t* buf, int64_t len,
                             uint32_t* out, int64_t segments) {
   const int64_t w = g2 ? 72 : 36;
-  for (int64_t s = 0; s < segments; ++s) {
-    uint32_t* seg = buf + s * len * w;
-    for (int64_t h = len / 2; h >= 1; h /= 2)
-      for (int64_t i = 0; i < h; ++i) {
-        if (g2) segment_step_elem<fp2>(seg, i, h);
-        else segment_step_elem<fp>(seg, i, h);
-      }
-    for (int64_t j = 0; j < w; ++j) out[s * w + j] = seg[j];
+  void* s = malloc(g2 ? sizeof(seg_smem<fp2>) : sizeof(seg_smem<fp>));
+  for (int64_t i = 0; i < segments; ++i) {
+    if (g2)
+      segment_job<fp2>((seg_smem<fp2>*)s, buf + i * len * w, len, out + i * w);
+    else
+      segment_job<fp>((seg_smem<fp>*)s, buf + i * len * w, len, out + i * w);
   }
+  free(s);
 }
 // the fold's legs, each kernel's threads in turn (the cofactor leg is
 // bls381_cofactor.cu's body into g2's rows, then fold_h_elem), the segment
@@ -360,29 +362,62 @@ def test_windowed_ladder_equals_the_plain_version(host_lib, case):
     assert unpack(want) == [p * s for p, s in zip(pts, scalars)]
 
 
-def _segments(g, inf):
-    """Three segments of four points: distinct points, one with an
-    infinity, an equal pair (the doubling) and an opposite pair (the
-    identity) in the halving's pairs."""
+def _segments(case, g, inf, width):
+    """Segments of a K1 case: "infinity rows", three of four points
+    (distinct points, one with infinities, an equal and an opposite pair in
+    the halving's pairs); "equal pair" and "negated pair", whose pairs
+    double or cancel in the first and the second round; "wide", one segment
+    of `width` consecutive multiples whose first round spans more than one
+    batch of adds, with an equal, an opposite and an infinite partner in
+    its second batch."""
     a, b, c = g * 5, g * 11, g * 17
-    return [[a, b, c, g], [inf, a, inf, a], [a, b, -a, c]]
+    if case == "infinity rows":
+        return [[a, b, c, g], [inf, a, inf, a], [a, b, -a, c]]
+    if case == "equal pair":
+        return [[a, b, a, b], [a, c, a, inf]]
+    if case == "negated pair":
+        return [[a, b, -a, c], [a, b, -a, -b]]
+    pts, p = [], g * 0x5EED
+    for _ in range(width):
+        pts.append(p)
+        p = p + g
+    h = width // 2
+    pts[h + h - 1] = pts[h - 1]
+    pts[h + h - 2] = -pts[h - 2]
+    pts[h + h - 3] = inf
+    return [pts]
 
 
+@pytest.mark.parametrize("case", ["infinity rows", "equal pair",
+                                  "negated pair", "wide"])
 @pytest.mark.parametrize("field", ["g1", "g2"])
-def test_segment_sum_equals_the_plain_version(host_lib, field):
+def test_segment_sum_equals_the_plain_version(host_lib, field, case):
+    """K1's levels (bls381_segment.cuh, a block's 128 lanes in turn)
+    against `halving_sum`, word for word; the wide case is 128 G1 points
+    (a first round of 64 adds, two batches of 32) or 32 G2 points (16
+    adds, batches of 10 and 6)."""
     if field == "g1":
         gen, inf, pack, F = cv.g1_generator(), cv.g1_infinity(), ct.g1_pack, ct.F1
+        width = 128
     else:
         gen, inf, pack, F = cv.g2_generator(), cv.g2_infinity(), ct.g2_pack, ct.F2
-    segs = _segments(gen, inf)
-    pts = tuple(c.reshape((3, 4) + c.shape[1:])
+        width = 32
+    segs = _segments(case, gen, inf, width)
+    n, length = len(segs), len(segs[0])
+    pts = tuple(c.reshape((n, length) + c.shape[1:])
                 for c in pack([p for s in segs for p in s]))
     buf = _words(torch.stack(pts, dim=2))
-    out = torch.empty((3,) + tuple(buf.shape[2:]), dtype=torch.int32)
-    host_lib.segment_sum(int(field == "g2"), buf.data_ptr(), 4,
-                         out.data_ptr(), 3)
+    out = torch.empty((n,) + tuple(buf.shape[2:]), dtype=torch.int32)
+    host_lib.segment_sum(int(field == "g2"), buf.data_ptr(), length,
+                         out.data_ptr(), n)
     want = bls381_cuda.halving_sum(F, pts)
     assert torch.equal(fq.from_words(out), torch.stack(want, dim=1))
+    unpack = ct.g2_unpack if field == "g2" else ct.g1_unpack
+    sums = [inf] * n
+    for i, seg in enumerate(segs):
+        for p in seg:
+            sums[i] = sums[i] + p
+    assert unpack(want) == sums
 
 
 @pytest.mark.parametrize("case", ["valid lanes", "infinity sum"])

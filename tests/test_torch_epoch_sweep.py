@@ -8,12 +8,20 @@ the port with `convert.sweep_inputs_from_numpy`, they must give the port's
 `run_sweep` (on the CPU: the plain torch version behind the kernel's
 wrapper) lanes equal to the reference's XLA program on the CPU and to its
 `numpy_sweep`.  Seeded synthetic inputs of 4,096 lanes cover FAR epochs,
-proposer collisions, rewards off and both slashing forms.  Every tolerance
-is exact: the lanes are integers and bools.
+proposer collisions, rewards off and both slashing forms.  The kernel's
+lane math (`ops/csrc/epoch_sweep.cuh`) compiles as host C++: built with
+g++ and run over the same synthetic lanes through the wrapper's parameter
+array, it must equal `plain_sweep`, and its division by reciprocals must
+equal Python's `//` on seeded and edge int64 pairs.  Every tolerance is
+exact: the lanes are integers and bools.
 """
+import ctypes
 import functools
 import os
+import random
 import re
+import shutil
+import subprocess
 from math import isqrt
 
 import numpy as np
@@ -297,8 +305,9 @@ def test_run_sweep_on_the_default_device_without_a_card_raises(monkeypatch):
 
 def test_kernel_parameter_slots_match_the_wrapper():
     """The kernel cannot run here: its parameter slots, read from the
-    source, are the wrapper's PARAMS in the same order."""
-    src = open(os.path.join(cuda_build.CSRC, "epoch_sweep.cu")).read()
+    source (its lane header), are the wrapper's PARAMS in the same
+    order."""
+    src = open(os.path.join(cuda_build.CSRC, "epoch_sweep.cuh")).read()
     body = re.search(r"enum Param : int \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     slots = [s.strip() for s in body.split(",") if s.strip()]
@@ -312,3 +321,119 @@ def test_column_and_scalar_names_match_the_reference():
     for name in ("FAR", "PHASE0_COLS", "ALTAIR_COLS", "PHASE0_SCALARS",
                  "ALTAIR_SCALARS"):
         assert getattr(epoch_sweep, name) == getattr(jsweep, name), name
+
+
+HARNESS = r"""
+#include "epoch_sweep.cuh"
+#include <string.h>
+// epoch_sweep.cu's two passes, lane after lane: the masked sums and the
+// proposer scatter, then the lanes
+extern "C" void sweep(const int64_t* params) {
+  const Sweep s = sweep_from_params(params);
+  memset(s.sums, 0, (3 + (sweep_scatters(s) ? s.n : 0)) * sizeof(u64));
+  u64 acc[3] = {0, 0, 0};
+  for (i64 i = 0; i < s.n; ++i) {
+    if (sweep_sums(s)) sums_lane(s, i, acc);
+    i64 proposer;
+    u64 gain;
+    if (sweep_scatters(s) && proposer_share(s, i, &proposer, &gain))
+      s.proposer_gain[proposer] += gain;
+  }
+  for (int k = 0; k < 3; ++k) s.sums[k] = acc[k];
+  i64 pincr[3];
+  for (int k = 0; k < 3; ++k) pincr[k] = participating_incr(s, k);
+  for (i64 i = 0; i < s.n; ++i) {
+    if (s.altair) altair_lane(s, pincr, i);
+    else phase0_lane(s, pincr, i);
+  }
+}
+// rdiv by (m[i], l[i]) and floor_div by d[i], element by element
+extern "C" void divide(const int64_t* n, const int64_t* m, const int64_t* l,
+                       const int64_t* d, int64_t* q, int64_t* q_delay,
+                       int64_t count) {
+  for (int64_t i = 0; i < count; ++i) {
+    Recip r;
+    r.m = static_cast<u64>(m[i]);
+    r.l = static_cast<int>(l[i]);
+    q[i] = rdiv(n[i], r);
+    q_delay[i] = floor_div(n[i], d[i]);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lane_lib(tmp_path_factory):
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build epoch_sweep.cuh with")
+    out = tmp_path_factory.mktemp("epoch_sweep_host")
+    src = out / "harness.cpp"
+    src.write_text(HARNESS)
+    lib_path = out / "libepoch_sweep_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-w",
+                    "-I", cuda_build.CSRC, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    p = ctypes.c_void_p
+    lib.sweep.argtypes = [p]
+    lib.divide.argtypes = [p] * 6 + [ctypes.c_int64]
+    return lib
+
+
+@pytest.mark.parametrize("case", sorted(SYNTHETIC))
+def test_lane_header_matches_the_plain_sweep(lane_lib, case):
+    """epoch_sweep.cuh's lanes on the host, through the wrapper's parameter
+    array (its reciprocals among them), equal plain_sweep lane for lane."""
+    inp = _port_inputs(_synthetic(**SYNTHETIC[case]))
+    cols = epoch_sweep.host_columns(inp)
+    altair = inp.family == "altair"
+    st = dict(inp.statics)
+    want = epoch_sweep.plain_sweep(cols, inp.scalars, st)
+    _buf, out = epoch_sweep.lane_buffers(altair, inp.n, "cpu")
+    scratch = torch.zeros(3 + inp.n, dtype=torch.int64)
+    params = epoch_sweep_cuda._params(cols, inp.scalars, st, out, scratch,
+                                      inp.n, altair)
+    lane_lib.sweep(params.ctypes.data)
+    for name, g, w in zip(epoch_sweep.ALTAIR_OUT if altair
+                          else epoch_sweep.PHASE0_OUT, out, want):
+        assert torch.equal(g, w), name
+
+
+EDGE_NUMERATORS = (0, 1, -1, -(1 << 63), (1 << 63) - 1)
+EDGE_DIVISORS = (1, 2, 3, (1 << 32) - 1, (1 << 32) + 1, 1 << 62,
+                 (1 << 63) - 1)
+
+
+@pytest.mark.parametrize("divisor", list(EDGE_DIVISORS) + ["seeded"])
+def test_reciprocal_division_equals_floor_division(lane_lib, divisor):
+    """`rdiv` with the wrapper's reciprocal, and the inclusion delay's
+    `floor_div`, against Python's floor division: the edge numerators, the
+    multiples of the divisor and their neighbours, and seeded int64s, over
+    one edge divisor or seeded divisors of every width."""
+    rng = random.Random(f"2026-{divisor}")
+    count = 4096
+    lo, hi = -(1 << 63), (1 << 63) - 1
+    divs = ([rng.randrange(1 << (w - 1), 1 << w)
+             for w in (rng.randrange(1, 64) for _ in range(count))]
+            if divisor == "seeded" else [divisor] * count)
+    nums = [rng.randint(lo, hi) for _ in range(count)]
+    nums[:len(EDGE_NUMERATORS)] = EDGE_NUMERATORS
+    # multiples of the divisor and their neighbours
+    for j in range(len(EDGE_NUMERATORS), count // 2):
+        k = rng.randint(lo // divs[j], hi // divs[j])
+        nums[j] = min(max(k * divs[j] + j % 3 - 1, lo), hi)
+    recips = [epoch_sweep_cuda._reciprocal(d) for d in divs]
+    assert all(0 < m < 1 << 64 for m, _ in recips)
+    i64 = functools.partial(np.array, dtype=np.int64)
+    n_arr = i64(nums)
+    m_arr = np.array([m for m, _ in recips], dtype=np.uint64).view(np.int64)
+    l_arr = i64([shift for _, shift in recips])
+    d_arr = i64(divs)
+    q, q_delay = np.empty(count, np.int64), np.empty(count, np.int64)
+    lane_lib.divide(n_arr.ctypes.data, m_arr.ctypes.data, l_arr.ctypes.data,
+                    d_arr.ctypes.data, q.ctypes.data, q_delay.ctypes.data,
+                    count)
+    want = [n // d for n, d in zip(nums, divs)]
+    assert q.tolist() == want
+    assert q_delay.tolist() == want
