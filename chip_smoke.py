@@ -5,12 +5,38 @@
 
     python3 chip_smoke.py --only flush,block   (chosen phases, no result)
 
-Drives the port's six paths on the card, the per-slot BeaconState root
+Drives the port's eight paths on the card, the per-slot BeaconState root
 (slice 1), incremental re-roots (slice 2), the phase0 epoch transition
 (slice 3), phase0 block processing with every signature checked (slice 4),
-the block's signature flush (slice 5) and the deneb KZG blob path (slice
-7), and holds every kernel of those paths against its plain PyTorch
-version:
+the block's signature flush (slice 5), the deneb KZG blob path (slice 7),
+and altair's epoch transition and boundary-crossing block with a full
+sync aggregate (slice 14), and holds every kernel of those paths against
+its plain PyTorch version.
+
+Registry sizes.  Phases "main path", "incremental" and "altair epoch"
+run 262,144 validators (bench.py EPOCH_VALIDATORS).  The block paths pay
+for registry scans in the reference's own algorithm, which neither
+package caches: every committee lookup scans the registry (about
+70 scans a phase0 block), and in altair every newly set participation
+flag (`get_base_reward` reads the total active balance) and every sync
+participant (`get_beacon_proposer_index`) scans it once more: about 3,650
+scans for 8 full committees and 512 participants when every flag is new,
+about 1,040 with the altair recipe's partial participation.  At 262,144
+validators a scan takes about 0.4 s on the card's host, so an altair
+block would take from 7 to 25 minutes a run.  The card's work does not
+depend on the registry size (the same checks and the same 1,024 + 512
+keys), so only the registry is cut, never the committee size, the
+attestation count or the sync committee: phase "block" runs
+N_BLOCK_VALIDATORS = 16,384 (mainnet's MIN_GENESIS_ACTIVE_VALIDATOR_COUNT,
+4 committees of 128 a slot; 262,144 until the altair phases needed its
+time), phase "altair block" N_ALTAIR_BLOCK = 8,192 (2 committees of 128 a
+slot).  To keep the phases inside the script's time with the two altair
+phases added, phase "epoch" (phase0) runs N_EPOCH_VALIDATORS = 65,536
+(65,535 active, 15 committees a slot; 262,144 until then): the altair
+epoch keeps the full registry, and the sweep kernel is held at 2**18 and
+2**20 lanes in phase "epoch kernel".
+
+Phases:
 
 1. device: requires a CUDA card and prints its name and power limit;
 2. build: builds the kernels, SHA-256 pair-hash and gather-hash, the
@@ -55,19 +81,30 @@ version:
    bounds that would reach past a run refused on a CUDA pool with no launch;
    the SASS of both entries by pipe, and the times of every round size of
    the cache build and the re-root and of the tail on the re-root's run;
-7. epoch: the same seeded state at slot 127 with pending attestations and
-   registry edge cases (`epoch_state`), incremental mode on and the sweep's
+7. epoch: the seeded state of 65,536 validators (N_EPOCH_VALIDATORS) at
+   slot 127 with pending attestations and registry edge cases
+   (`epoch_state`), incremental mode on and the sweep's
    guard at rate 1, advanced to slot 128 with `process_slots`: one sweep
    dispatch on the epoch-sweep kernel, every lane held against the plain
    version, and the root at slot 128 equal to the host-hashed oracle and to
    the JAX package's (POST_EPOCH_ROOT_128); prints the seconds of each part
    of the epoch;
-8. epoch kernel: the epoch-sweep kernel against the plain torch version on
+8. altair epoch: `altair_epoch_state`, an altair mainnet state of
+   262,144 validators at slot 127 with seeded participation flags (most
+   with every flag, some with the source or the target flag only, some
+   with none), 300 nonzero inactivity scores, the registry edge cases of
+   `epoch_state` and seeded sync committees, advanced to slot 128 as in
+   phase "epoch": 2 epoch_sweep launches of the altair family (flag deltas
+   and inactivity scores), every lane held against the plain version, the
+   scores' and balances' bulk writeback, the participation rotation, and
+   the root at slot 128 equal to the host-hashed oracle and to the JAX
+   package's (POST_ALTAIR_EPOCH_ROOT_128); prints each part's seconds;
+9. epoch kernel: the epoch-sweep kernel against the plain torch version on
    the card, bit for bit on every output lane, for both families, with and
    without a leak, without rewards and with electra's slashings, at 1, 255,
    257, 65,537, 2**18 and 2**20 lanes, and its times beside its bound by
    bytes and operations;
-9. bls kernels: every op of the field kernel on 2**16 seeded elements, the
+10. bls kernels: every op of the field kernel on 2**16 seeded elements, the
    h_eff ladder on 1, 64 and 1,024 points (one plain call on the first 64 and
    64 seeded rows of the 1,024), and the Miller values, products and
    verdicts of a valid and an invalid check at k = 2, 129 and 1,024 pairs
@@ -85,11 +122,11 @@ version:
    two launches beside the check) from a CUDA graph side by side, with
    the plain version's times and the operation bounds (the new kernels'
    from their plain versions' product counters);
-10. bls: seeded Verify (valid, tampered, wrong key, infinity),
+11. bls: seeded Verify (valid, tampered, wrong key, infinity),
    FastAggregateVerify over a 128-key committee (valid, invalid) and
    AggregateVerify over 8 messages on the shim's device backend, each
    verdict equal to the native oracle's;
-11. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128, 64
+12. flush kernels: the segment-sum kernel (G1 at a block's 8 x 128, 64
    ragged segments up to 2,048 and the blob verify's 6 points of 8, G2 at
    one segment of 1,024 and the block fold's 14 of 16), the G1 ladder
    (1,024 and 16,384 lanes of 64 bits, the larger on a seeded sample of
@@ -108,15 +145,16 @@ version:
    without the final exponentiation and over the block's partial product
    with it), each bit for bit against the plain version, timed through
    its wrapper from a CUDA graph beside its plain time and bound;
-12. flush: seeded flushes of 16 sets (set 8 bad) and 256 through
+13. flush: seeded flushes of 16 sets (set 8 bad) and 256 through
    `scheduler.verify_sets` as the one-launch fold, the staged fold and
    unfolded: the verdicts equal each other, the construction and the
    native oracle, with N + 1 Miller legs folded and 2N unfolded;
-13. block: `block_case`, the same seeded state at slot 97 with real keys
-   for its signers and a signed block at slot 98 (8 full-committee
-   attestations, a proposer and an attester slashing: 14 signature
-   checks), through `state_transition` with BLS on: the root must equal
-   the host oracle and the JAX package's (POST_BLOCK_ROOT_98), every check
+14. block: `block_case`, the seeded state of 16,384 validators
+   (N_BLOCK_VALIDATORS) at slot 97 with real keys for its signers and a
+   signed block at slot 98 (8 full-committee attestations, a proposer and
+   an attester slashing: 14 signature checks), through `state_transition`
+   with BLS on: the root must equal the host oracle and the JAX package's
+   (POST_BLOCK_ROOT_98), every check
    must launch the cofactor kernel once and the four-warp pairing check
    once (and the ladder, field and two-launch pairing kernels never), and
    a copy with a tampered first attestation must be rejected there;
@@ -124,13 +162,27 @@ version:
    flush as one fold chain with no scalar ladder, and the tampered copy
    rejected at its attestation after bisection; prints each part's
    seconds;
-14. msm kernel: the Pippenger kernel (five launches) against its plain
+15. altair block: `altair_block_case`, an altair mainnet state of 8,192
+   validators at slot 127, every validator with a real key, both sync
+   committees from `get_next_sync_committee`, and a signed block at slot
+   128 (bench.py's north-star shape: 8 full-committee attestations of
+   slots 120-127, a full 512-member sync aggregate: 11 signature checks),
+   through `state_transition` with BLS on: the root must equal the host
+   oracle and the JAX package's (POST_ALTAIR_BLOCK_ROOT_128), every check
+   must launch the cofactor kernel and the four-warp check once (the sync
+   aggregate's among them) and the replaced kernels never; then with
+   `sigpipe.enable()`: the same root, 11 seam hits, one fold chain, the
+   sync set's committee sum cached under its ("sync", period) hint; and
+   a copy whose sync aggregate signs a root with one byte changed,
+   rejected at process_sync_aggregate after bisection; prints each
+   part's seconds (committee scans, host decode, card);
+16. msm kernel: the Pippenger kernel (five launches) against its plain
    torch version and the host oracle on the card, the result's affine
    words and compressed bytes, at 256 (edge rows), 300, 1,024
    and 4,096 points of the ceremony basis and 4,096 with every scalar
    equal; the kernel and the lanes engine timed at each size; at 4,096
    points each launch, the plain version and the bound;
-15. kzg: the port's KZG engine on the ceremony setup with its device MSM
+17. kzg: the port's KZG engine on the ceremony setup with its device MSM
    (the default): bench.py's six blobs of 4,096 field elements, their
    commitments and blob proofs (12 Pippenger MSMs) equal to the JAX
    package's (KZG_COMMITMENTS, KZG_PROOFS, scripts/torch_kzg_reference.py),
@@ -138,9 +190,13 @@ version:
    one host pairing) and False with two proofs swapped (the attribution
    counted), commit(constant c) == c G1; prints each part's host seconds.
 
-Each phase prints its seconds.  The second-to-last line is a JSON object with
-one entry per kernel; the last line is {"ok": true, "device": {...}}.  Any
-failure raises and exits non-zero.  There is no CPU path.
+Each phase prints its seconds.  The third-to-last line is a JSON object with
+one entry per kernel: `launches` is the count on the kernel's first path
+(the phase0 one where an altair path launches it too), `launches_by_path`
+each path's own count, never a sum of two paths.  The second-to-last line
+is the card's name and power limit; the last line is {"ok": true,
+"device": {...}}.  Any failure raises and exits non-zero.  There is no CPU
+path.
 """
 import functools
 import hashlib
@@ -180,28 +236,47 @@ from consensus_specs_tpu_torch.ssz import uint_to_bytes
 from consensus_specs_tpu_torch.utils import bls
 
 SEED = 2026
+# registry sizes: phases "main path", "incremental" and "altair epoch"
+# run bench.py's EPOCH_VALIDATORS; the block paths' cost is registry scans
+# (`get_active_validator_indices`, one a committee lookup, and in altair
+# one a newly set flag and one a sync participant), so their registries
+# are cut to what the script's time limit allows, with committees,
+# attestation counts and the sync committee at their mainnet sizes, and
+# phase "epoch" is cut to pay for the altair phases (see the docstring)
 N_VALIDATORS = 1 << 18          # bench.py EPOCH_VALIDATORS
+N_EPOCH_VALIDATORS = 1 << 16    # phase "epoch": 15 committees a slot
+N_BLOCK_VALIDATORS = 1 << 14    # phase "block": mainnet's minimum genesis
+N_ALTAIR_BLOCK = 1 << 13        # phase "altair block": 2 committees a slot
 START_SLOT = 97                 # no epoch boundary up to slot 127
 END_SLOT = 99                   # the main path: two process_slot calls
 INC_END_SLOT = 101              # the incremental path: four
 EPOCH_SLOT = 127                # the epoch path: process_slots 127 -> 128
 BLOCK_SLOT = START_SLOT + 1     # the block path: a signed block at slot 98
-BLOCK_ATTESTATIONS = 8          # full committees of 128 at 262,144
+BLOCK_ATTESTATIONS = 8          # full committees of 128
 BLOCK_SK_BASE = 0x5EED2026      # the first signer's secret key
+ALTAIR_SK_BASE = 0x5EED2027     # validator 0's secret key, altair block
 # the post-state root at slot 101 of the seeded state, advanced with full
 # rebuilds (chip_smoke.py's four-slot main path before incremental re-roots)
 FULL_REBUILD_ROOT_101 = (
     "9d5159b701792b2ec49b6180984c36ecd7bd55e18b4e3dbdd298da57be0366b6")
-# the JAX package's root at slot 128 of epoch_state(spec, N_VALIDATORS)
-# after process_slots(state, 128), on the CPU
+# the JAX package's root at slot 128 of epoch_state(spec,
+# N_EPOCH_VALIDATORS) after process_slots(state, 128), on the CPU
 # (scripts/torch_epoch_reference_root.py)
 POST_EPOCH_ROOT_128 = (
-    "68891d02776f70579e92d08fa22c5e02bd4440b3f3761ca435846dc70d13f648")
-# the JAX package's root at slot 98 of block_case(spec, N_VALIDATORS) after
-# state_transition with its native BLS, on the CPU
+    "1c6208bc3863d81fcfe81debd21c6c536181979f0b78cae12f854da7d619f07b")
+# the JAX package's root at slot 98 of block_case(spec, N_BLOCK_VALIDATORS)
+# after state_transition with its native BLS, on the CPU
 # (scripts/torch_block_reference_root.py)
 POST_BLOCK_ROOT_98 = (
-    "4322c9332ce7ca714a9f939d0e1fd1b0290e7627c31bd49195dc786320b0a135")
+    "c418316a0f9fd6b0bf35ef11224ad5971bc308dbb975375c80f1306e4df6dd95")
+# the JAX package's altair roots at slot 128, on the CPU
+# (scripts/torch_altair_reference_root.py): altair_epoch_state(spec,
+# N_VALIDATORS) after process_slots, and altair_block_case(spec,
+# N_ALTAIR_BLOCK) after state_transition with its native BLS
+POST_ALTAIR_EPOCH_ROOT_128 = (
+    "09e4ec47e4f7ca2ecc4d9b83186aab3241c88fb2b01333f30e019303ef5d0cf8")
+POST_ALTAIR_BLOCK_ROOT_128 = (
+    "4bce50277a3832fe3d3c45569409c260e8a06d57a43e2a11f051a50d9395b562")
 KERNEL_SIZES = (1, 255, 256, 257, 65537, 1 << 17, 1 << 20)
 TIMED_SIZES = (1 << 17, 1 << 20)
 MAIN_PATH_PAIRS = 1 << 17       # the largest level of the main path
@@ -714,26 +789,12 @@ def seeded_state(spec, n, slot=START_SLOT):
     return state
 
 
-def epoch_state(spec, n):
-    """seeded_state at EPOCH_SLOT, the last slot of epoch 3, with what a
-    phase0 epoch transition reads (seeded from SEED + 3, so seeded_state's
-    draws are unchanged):
-
-    - 8 previous-epoch PendingAttestations over 4 committees, each
-      committee attested twice with different inclusion delays and
-      proposers; one has a wrong target root and one a wrong head root;
-      about 90% of the aggregation bits set;
-    - 4 current-epoch attestations with the right target, for
-      justification;
-    - 2 slashed validators withdrawable at epoch 3 + 4096 (inside the
-      slashings window), 1 at the ejection balance, 1 with
-      activation_eligibility_epoch FAR (the eligibility queue) and 1 with
-      activation_epoch FAR and eligibility 0 (the activation queue).
-
-    Committees are sized from the active count alone (the spec's
-    compute_committee slices), so the bits need no committee lookup."""
-    state = seeded_state(spec, n, EPOCH_SLOT)
-    rng = np.random.default_rng(SEED + 3)
+def _epoch_edges(spec, state):
+    """The registry edge cases of an epoch state at EPOCH_SLOT: 2 slashed
+    validators withdrawable at epoch 3 + 4096 (inside the slashings
+    window), 1 at the ejection balance, 1 with activation_eligibility_epoch
+    FAR (the eligibility queue) and 1 with activation_epoch FAR and
+    eligibility 0 (the activation queue)."""
     far = int(spec.FAR_FUTURE_EPOCH)
     cur = EPOCH_SLOT // int(spec.SLOTS_PER_EPOCH)
     for i in (10, 11):
@@ -745,6 +806,27 @@ def epoch_state(spec, n):
     state.balances[12] = int(spec.config.EJECTION_BALANCE)
     state.validators[13].activation_eligibility_epoch = far
     state.validators[14].activation_epoch = far
+
+
+def epoch_state(spec, n):
+    """seeded_state at EPOCH_SLOT, the last slot of epoch 3, with what a
+    phase0 epoch transition reads (seeded from SEED + 3, so seeded_state's
+    draws are unchanged):
+
+    - 8 previous-epoch PendingAttestations over 4 committees, each
+      committee attested twice with different inclusion delays and
+      proposers; one has a wrong target root and one a wrong head root;
+      about 90% of the aggregation bits set;
+    - 4 current-epoch attestations with the right target, for
+      justification;
+    - the registry edge cases of `_epoch_edges`.
+
+    Committees are sized from the active count alone (the spec's
+    compute_committee slices), so the bits need no committee lookup."""
+    state = seeded_state(spec, n, EPOCH_SLOT)
+    rng = np.random.default_rng(SEED + 3)
+    cur = EPOCH_SLOT // int(spec.SLOTS_PER_EPOCH)
+    _epoch_edges(spec, state)
 
     slots_per_epoch = int(spec.SLOTS_PER_EPOCH)
     active = n - 1                     # validator 14 is not active yet
@@ -784,6 +866,42 @@ def epoch_state(spec, n):
     return state
 
 
+def altair_epoch_state(spec, n):
+    """seeded_state at EPOCH_SLOT for an altair spec, with what an altair
+    epoch transition reads (seeded from SEED + 7, so seeded_state's draws
+    are unchanged):
+
+    - previous-epoch participation flags: about 85% of the validators
+      with every flag, 4% with the source flag only, 4% with the target
+      flag only, the rest with none;
+    - current-epoch flags (for justification): about 80% with every flag,
+      10% with source and target, the rest with none;
+    - inactivity scores of 1-99 on 300 validators, 0 elsewhere;
+    - the registry edge cases of `epoch_state` (`_epoch_edges`);
+    - both sync committees filled with seeded bytes: epoch 4 does not
+      start a sync period, so the epoch reads neither (random bytes are
+      not keys, so `get_next_sync_committee` could not aggregate them)."""
+    state = seeded_state(spec, n, EPOCH_SLOT)
+    rng = np.random.default_rng(SEED + 7)
+    _epoch_edges(spec, state)
+    u = rng.random(n)
+    state.previous_epoch_participation = np.select(
+        [u < 0.85, u < 0.89, u < 0.93], [7, 1, 2], 0).tolist()
+    u = rng.random(n)
+    state.current_epoch_participation = np.select(
+        [u < 0.80, u < 0.90], [7, 3], 0).tolist()
+    scores = np.zeros(n, np.int64)
+    scores[rng.choice(n, 300, replace=False)] = rng.integers(1, 100, 300)
+    state.inactivity_scores = scores.tolist()
+    size = int(spec.SYNC_COMMITTEE_SIZE)
+    for name in ("current_sync_committee", "next_sync_committee"):
+        keys = rng.bytes(48 * size)
+        setattr(state, name, spec.SyncCommittee(
+            pubkeys=[keys[48 * i:48 * (i + 1)] for i in range(size)],
+            aggregate_pubkey=rng.bytes(48)))
+    return state
+
+
 def consecutive_keys(count, base):
     """`count` secret keys base, base + 1, ... and their compressed
     pubkeys, each pubkey the previous one plus G (one point add a key, not
@@ -802,13 +920,13 @@ def _signing_root(spec, state, obj, domain_type, epoch):
         obj, spec.get_domain(state, domain_type, epoch))
 
 
-def block_case(spec, n, n_attestations=BLOCK_ATTESTATIONS):
+def block_case(spec, n):
     """The block path's input: `seeded_state(spec, n)` at slot 97 with real
     keys for its signers, and a signed block at slot 98 carrying
-    `n_attestations` full-committee attestations (of slot 97, and of the
+    BLOCK_ATTESTATIONS (8) full-committee attestations (of slot 97, and of the
     slots below it where slot 97 has fewer committees), one proposer
     slashing and one attester slashing (a double vote of [a, b] and
-    [b, c]: b is slashed).  That is n_attestations + 6 signature checks:
+    [b, c]: b is slashed).  That is 14 signature checks:
     the block, its randao reveal, two slashed headers, two indexed
     attestations and the attestations.
 
@@ -827,7 +945,7 @@ def block_case(spec, n, n_attestations=BLOCK_ATTESTATIONS):
     cps = max(1, min(int(spec.MAX_COMMITTEES_PER_SLOT),
                      n // spe // int(spec.TARGET_COMMITTEE_SIZE)))
     picks = [(slot, index) for slot in range(START_SLOT, START_SLOT - spe, -1)
-             for index in range(cps)][:n_attestations]
+             for index in range(cps)][:BLOCK_ATTESTATIONS]
     committees = {}
     for slot, index in picks:
         seed = spec.get_seed(state, slot // spe, spec.DOMAIN_BEACON_ATTESTER)
@@ -928,6 +1046,119 @@ def tampered_block(spec, signed_block, facts):
     message = signed_block.message.copy()
     message.body.attestations[0].signature = \
         message.body.attestations[1].signature
+    return facts["resign"](message)
+
+
+def altair_block_case(spec, n):
+    """The altair block path's input, the shape of bench.py's north-star
+    block (`_ns_signed_block`): `seeded_state(spec, n)` at EPOCH_SLOT with
+    a real key for every validator (consecutive secret keys from
+    ALTAIR_SK_BASE), seeded participation (about 90% of the previous
+    epoch with every flag; the current epoch partial: about half with
+    every flag, a quarter with source and target, the rest none), both
+    sync committees from `get_next_sync_committee` (512 members and their
+    real aggregate pubkey), and a signed block at slot 128, across the
+    epoch boundary, carrying BLOCK_ATTESTATIONS (8) full-committee
+    attestations of slots 127, 126, ... (inclusion delays 1 up: every mix
+    of the timely flags) and a fully participating sync aggregate.  That
+    is 11 signature checks: the block, its randao reveal, the 8
+    attestations and the sync aggregate.
+
+    An aggregate signature is Sign(sum of the signers' keys mod r, root),
+    the sync committee's with each member's key as often as it sits in
+    the committee.  The signing roots and the block's state root come from
+    a copy advanced to slot 128 and applied with BLS off.  Returns
+    (pre-state, signed block, facts), facts holding the committees (slot,
+    index, size), `resign`, the sync committee's summed key and signing
+    root, and `post`, the post-state of that copy."""
+    state = seeded_state(spec, n, EPOCH_SLOT)
+    rng = np.random.default_rng(SEED + 9)
+    sks, pks = consecutive_keys(n, ALTAIR_SK_BASE)
+    for v, pk in zip(state.validators, pks):
+        v.pubkey = pk
+    u = rng.random(n)
+    state.previous_epoch_participation = np.where(u < 0.9, 7, 0).tolist()
+    u = rng.random(n)
+    state.current_epoch_participation = np.select(
+        [u < 0.5, u < 0.75], [7, 3], 0).tolist()
+    state.inactivity_scores = [0] * n
+    committee = spec.get_next_sync_committee(state)
+    state.current_sync_committee = committee
+    state.next_sync_committee = committee.copy()
+
+    def sign(indices, root):
+        return bls12_381.Sign(sum(sks[i] for i in indices) % R, root)
+
+    post = state.copy()
+    saved = bls.bls_active
+    bls.bls_active = False
+    try:
+        spec.process_slots(post, EPOCH_SLOT + 1)
+        epoch = int(spec.get_current_epoch(post))
+        prev = epoch - 1
+        cps = int(spec.get_committee_count_per_slot(post, prev))
+        target = spec.Checkpoint(epoch=prev,
+                                 root=spec.get_block_root(post, prev))
+        attestations, committees = [], []
+        for j in range(BLOCK_ATTESTATIONS):
+            slot, index = EPOCH_SLOT - j, j % cps
+            members = [int(i) for i in
+                       spec.get_beacon_committee(post, slot, index)]
+            data = spec.AttestationData(
+                slot=slot, index=index,
+                beacon_block_root=post.block_roots[
+                    slot % spec.SLOTS_PER_HISTORICAL_ROOT],
+                source=post.previous_justified_checkpoint, target=target)
+            attestations.append(spec.Attestation(
+                aggregation_bits=[True] * len(members), data=data,
+                signature=sign(members, _signing_root(
+                    spec, post, data, spec.DOMAIN_BEACON_ATTESTER, prev))))
+            committees.append((slot, index, len(members)))
+        index_of = {bytes(pk): i for i, pk in enumerate(pks)}
+        sync_sk = sum(sks[index_of[bytes(pk)]]
+                      for pk in committee.pubkeys) % R
+        sync_root = _signing_root(
+            spec, post, spec.get_block_root_at_slot(post, EPOCH_SLOT),
+            spec.DOMAIN_SYNC_COMMITTEE, prev)
+        proposer = int(spec.get_beacon_proposer_index(post))
+        body = spec.BeaconBlockBody(
+            randao_reveal=sign([proposer], _signing_root(
+                spec, post, uint64(epoch), spec.DOMAIN_RANDAO, epoch)),
+            eth1_data=post.eth1_data, attestations=attestations,
+            sync_aggregate=spec.SyncAggregate(
+                sync_committee_bits=[True] * len(committee.pubkeys),
+                sync_committee_signature=bls12_381.Sign(sync_sk,
+                                                        sync_root)))
+        block = spec.BeaconBlock(
+            slot=EPOCH_SLOT + 1, proposer_index=proposer,
+            parent_root=spec.hash_tree_root(post.latest_block_header),
+            body=body)
+        spec.process_block(post, block)
+    finally:
+        bls.bls_active = saved
+    block.state_root = spec.hash_tree_root(post)
+
+    def resign(message):
+        return spec.SignedBeaconBlock(message=message, signature=sign(
+            [proposer], _signing_root(spec, post, message,
+                                      spec.DOMAIN_BEACON_PROPOSER, epoch)))
+    facts = dict(committees=committees, resign=resign, sync_sk=sync_sk,
+                 sync_root=sync_root, post=post)
+    return state, resign(block), facts
+
+
+def tampered_sync_block(spec, signed_block, facts):
+    """The block with its sync aggregate signed over the sync root with
+    one byte changed, signed again by the proposer: a valid point and the
+    wrong signature, so state_transition must reject it at
+    process_sync_aggregate (one byte changed in the compressed signature
+    itself would not decode, and an undecodable signature is rejected
+    before any pairing)."""
+    message = signed_block.message.copy()
+    root = bytearray(bytes(facts["sync_root"]))
+    root[0] ^= 1
+    message.body.sync_aggregate.sync_committee_signature = bls12_381.Sign(
+        facts["sync_sk"], bytes(root))
     return facts["resign"](message)
 
 
@@ -1513,15 +1744,18 @@ def gather_tail_holds(rng, n_sms, max_mhz, build_sizes, reroot_sizes):
 class EpochRecorder:
     """Host clocks around the parts of one fused epoch.  Each part is
     looked up by specs/epoch_fast.py when it is called, so wrapping the
-    module attribute (or the spec instance's method) times it in place."""
+    module attribute (or the spec instance's method) times it in place;
+    `results` keeps each part's last result (`_collect`: the SweepInputs)."""
 
     PARTS = (
         ("StateArrays", epoch_fast, "StateArrays"),
         ("phase0_attestation_masks", epoch_fast, "phase0_attestation_masks"),
+        ("participation columns", epoch_fast, "_participation"),
+        ("_collect: sweep inputs", epoch_fast, "_collect"),
         ("run_sweep: upload, kernels and download", epoch_sweep,
          "run_sweep"),
         ("guard: plain_sweep on the host", epoch_fast, "_guard"),
-        ("writeback: _bulk_write of the balances", epoch_fast, "_bulk_write"),
+        ("writeback: _bulk_write", epoch_fast, "_bulk_write"),
         ("_apply_registry", epoch_fast, "_apply_registry"),
         ("effective-balance writes", epoch_fast,
          "_write_effective_balances"))
@@ -1558,18 +1792,13 @@ class EpochRecorder:
         return sum(self.calls.get(label, ()))
 
 
-@phase("epoch")
-def epoch_phase():
-    """The epoch path: process_slots 127 -> 128 on the card with
-    incremental mode on and every sweep lane held against plain_sweep."""
-    spec = get_spec("phase0", "mainnet")
-    t0 = time.perf_counter()
-    state = epoch_state(spec, N_VALIDATORS)
-    print(f"epoch state of {N_VALIDATORS} validators at slot {EPOCH_SLOT} "
-          f"({len(state.previous_epoch_attestations)} previous-epoch and "
-          f"{len(state.current_epoch_attestations)} current-epoch pending "
-          f"attestations) built in {time.perf_counter() - t0:.6f} s",
-          flush=True)
+def epoch_transition(label, spec, state, want_root):
+    """process_slots EPOCH_SLOT -> EPOCH_SLOT + 1 on the card with
+    incremental mode on and every sweep lane held against plain_sweep
+    (the guard at rate 1), the launches counted from 0 just before.  The
+    root must equal the host-hashed oracle and `want_root`, the JAX
+    package's.  Prints the transition's parts; returns (epoch_sweep
+    launches, the recorder, the metrics snapshot)."""
     sweep = epoch_sweep_cuda.epoch_sweep_cuda
     gather = sha256_cuda.hash_gather_pairs_cuda
     tail = sha256_cuda.hash_gather_tail_cuda
@@ -1598,7 +1827,7 @@ def epoch_phase():
                          tail.launches - epoch_gather[1])
         check((sweep.plain_calls, gather.plain_calls,
                tail.plain_calls) == plain_calls,
-              "epoch: a wrapper took its plain version on the card path")
+              f"{label}: a wrapper took its plain version on the card path")
         t0 = time.perf_counter()
         oracle = host_oracle(state)
         oracle_s = time.perf_counter() - t0
@@ -1607,46 +1836,87 @@ def epoch_phase():
         epoch_fast.set_guard(0.0)
         incremental.disable()
     snapshot = METRICS.snapshot()
+    family = rec.results["_collect: sweep inputs"].family
+    check(family == spec.fork,
+          f"{label}: the sweep ran the {family} family, not {spec.fork}")
     check(snapshot.get("epoch_sweep_dispatches") == 1,
-          f"epoch: {snapshot.get('epoch_sweep_dispatches')} sweep "
+          f"{label}: {snapshot.get('epoch_sweep_dispatches')} sweep "
           f"dispatches, expected 1")
     check(launches == EPOCH_SWEEP_LAUNCHES,
-          f"epoch: the sweep launched {launches} epoch_sweep kernels, "
+          f"{label}: the sweep launched {launches} epoch_sweep kernels, "
           f"expected {EPOCH_SWEEP_LAUNCHES}")
     check(snapshot.get("epoch_guard_samples") == 1
           and not snapshot.get("epoch_guard_mismatches"),
-          "epoch: the guard did not hold every lane once")
+          f"{label}: the guard did not hold every lane once")
     check(sum(reroot_gather) > 0,
-          "epoch: the post-epoch re-root launched no gather kernel")
+          f"{label}: the post-epoch re-root launched no gather kernel")
     check(root == oracle,
-          f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} != host-hashed "
-          f"oracle {oracle.hex()}")
-    check(root.hex() == POST_EPOCH_ROOT_128,
-          f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} != the JAX "
-          f"package's {POST_EPOCH_ROOT_128}")
+          f"{label}: root at slot {EPOCH_SLOT + 1} {root.hex()} != "
+          f"host-hashed oracle {oracle.hex()}")
+    check(root.hex() == want_root,
+          f"{label}: root at slot {EPOCH_SLOT + 1} {root.hex()} != the JAX "
+          f"package's {want_root}")
     epoch_s = rec.seconds("process_epoch")
-    masks = rec.calls.get("phase0_attestation_masks", [])
-    print(f"epoch: process_slots {EPOCH_SLOT} -> {EPOCH_SLOT + 1} "
+    print(f"{label}: process_slots {EPOCH_SLOT} -> {EPOCH_SLOT + 1} "
           f"{slots_s:.6f} s: process_slot's root (the cache build) "
           f"{slots_s - epoch_s:.6f} s, process_epoch {epoch_s:.6f} s")
-    print(f"epoch: StateArrays {rec.seconds('StateArrays'):.6f} s")
-    print(f"epoch: phase0_attestation_masks, previous epoch {masks[0]:.6f} s")
+    for part, _owner, _name in EpochRecorder.PARTS:
+        if part in rec.calls:
+            print(f"{label}: {part} {rec.seconds(part):.6f} s "
+                  f"({len(rec.calls[part])} calls)")
     weigh = rec.seconds("justification: weigh")
-    print(f"epoch: justification {masks[1] + weigh:.6f} s (current-epoch "
-          f"target mask {masks[1]:.6f} s, weigh {weigh:.6f} s)")
-    for label, _owner, _name in EpochRecorder.PARTS[2:]:
-        print(f"epoch: {label} {rec.seconds(label):.6f} s")
-    print(f"epoch: re-root at slot {EPOCH_SLOT + 1} {reroot_s:.6f} s "
+    parts_s = sum(rec.seconds(part) for part, _o, _n in EpochRecorder.PARTS)
+    print(f"{label}: justification: weigh {weigh:.6f} s; the rest of "
+          f"process_epoch (the tail resets) {epoch_s - parts_s - weigh:.6f} s")
+    print(f"{label}: re-root at slot {EPOCH_SLOT + 1} {reroot_s:.6f} s "
           f"({reroot_gather[0]} sha256_gather and {reroot_gather[1]} "
           f"gather-tail launches); host-hashed oracle "
           f"{oracle_s:.6f} s")
-    print(f"epoch: {rec.results['effective-balance writes']} effective "
+    print(f"{label}: {rec.results['effective-balance writes']} effective "
           f"balances changed, {snapshot.get('epoch_writeback_elems')} "
-          f"elements written back, {launches} epoch_sweep launches, "
-          f"{epoch_gather[0]} sha256_gather and {epoch_gather[1]} "
-          f"gather-tail launches in process_slots")
-    print(f"epoch: root at slot {EPOCH_SLOT + 1} {root.hex()} == host "
+          f"elements written back, {launches} epoch_sweep launches of the "
+          f"{family} family, {epoch_gather[0]} sha256_gather and "
+          f"{epoch_gather[1]} gather-tail launches in process_slots")
+    print(f"{label}: root at slot {EPOCH_SLOT + 1} {root.hex()} == host "
           f"oracle == JAX package")
+    return launches, rec, snapshot
+
+
+@phase("epoch")
+def epoch_phase():
+    """The phase0 epoch path: `epoch_state` at N_EPOCH_VALIDATORS through
+    `epoch_transition`."""
+    spec = get_spec("phase0", "mainnet")
+    t0 = time.perf_counter()
+    state = epoch_state(spec, N_EPOCH_VALIDATORS)
+    print(f"epoch state of {N_EPOCH_VALIDATORS} validators at slot "
+          f"{EPOCH_SLOT} ({len(state.previous_epoch_attestations)} "
+          f"previous-epoch and {len(state.current_epoch_attestations)} "
+          f"current-epoch pending attestations) built in "
+          f"{time.perf_counter() - t0:.6f} s", flush=True)
+    launches, _rec, _snap = epoch_transition("epoch", spec, state,
+                                             POST_EPOCH_ROOT_128)
+    return launches
+
+
+@phase("altair epoch")
+def altair_epoch_phase():
+    """The altair epoch path at N_VALIDATORS: `altair_epoch_state`
+    through `epoch_transition`: the sweep's altair family (flag deltas and
+    inactivity scores), the scores' and balances' bulk writeback, the
+    participation rotation, and the incremental re-root of all three
+    columns."""
+    spec = get_spec("altair", "mainnet")
+    t0 = time.perf_counter()
+    state = altair_epoch_state(spec, N_VALIDATORS)
+    print(f"altair epoch state of {N_VALIDATORS} validators at slot "
+          f"{EPOCH_SLOT} ({sum(1 for s in state.inactivity_scores if s)} "
+          f"nonzero inactivity scores) built in "
+          f"{time.perf_counter() - t0:.6f} s", flush=True)
+    launches, _rec, _snap = epoch_transition(
+        "altair epoch", spec, state, POST_ALTAIR_EPOCH_ROOT_128)
+    check(not any(state.current_epoch_participation),
+          "altair epoch: the current participation was not rotated out")
     return launches
 
 
@@ -2427,31 +2697,14 @@ def _reset_bls_counts():
             w.launches = 0
 
 
-@phase("block")
-def block_phase():
-    """The block path: `block_case` at 262,144 validators (a signed block
-    at slot 98 with 8 full-committee attestations, a proposer and an
-    attester slashing: 14 signature checks) through `state_transition`
-    with BLS on and the device backend.  The root must equal the host
-    oracle and the JAX package's; every check must launch the cofactor
-    kernel once and the four-warp pairing check once, and the kernels they
-    replace (the ladder, the field kernel, the pairing kernel's two
-    launches) never; a copy whose first attestation carries the wrong
-    signature must be rejected there."""
-    spec = get_spec("phase0", "mainnet")
-    merkle.use_device_hashing()
-    t0 = time.perf_counter()
-    state, signed, facts = block_case(spec, N_VALIDATORS)
-    n_checks = len(facts["committees"]) + 6
-    print(f"block: pre-state of {N_VALIDATORS} validators with "
-          f"{facts['signers']} signers' keys and a block of "
-          f"{len(facts['committees'])} attestations (committees "
-          f"{facts['committees'][:2]}...), {n_checks} signature checks, "
-          f"built in {time.perf_counter() - t0:.6f} s (its state root from "
-          f"one transition of a copy with BLS off)", flush=True)
-    tampered_pre = state.copy()
-    sigpipe_pre = state.copy()
-    sigpipe_tampered_pre = state.copy()
+def block_by_checks(label, spec, state, signed, n_checks, want_root, slots):
+    """`state_transition` of `signed` with BLS on and the device backend,
+    check by check, the counts set to 0 just before.  The root must equal
+    the host oracle and `want_root`, the JAX package's; every check must
+    launch the cofactor kernel once and the four-warp pairing check once,
+    and the kernels they replace (the ladder, the field kernel, the
+    pairing kernel's two launches) never.  Prints its parts' seconds;
+    returns the BLS kernels' launches."""
     bls.use_backend("cuda")
     bls.bls_active = True
     plain = [w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
@@ -2469,32 +2722,32 @@ def block_phase():
     finally:
         rec.close()
     check([w.plain_calls for ws in bls381_cuda.WRAPPERS.values()
-           for w in ws] == plain, "block: a wrapper took its plain version")
+           for w in ws] == plain, f"{label}: a wrapper took its plain "
+          f"version")
     root = bytes(spec.hash_tree_root(state))
     oracle = host_oracle(state)
-    check(root == oracle, f"block: root {root.hex()} != host-hashed oracle "
-          f"{oracle.hex()}")
-    check(root.hex() == POST_BLOCK_ROOT_98,
-          f"block: root {root.hex()} != the JAX package's "
-          f"{POST_BLOCK_ROOT_98}")
+    check(root == oracle, f"{label}: root {root.hex()} != host-hashed "
+          f"oracle {oracle.hex()}")
+    check(root.hex() == want_root,
+          f"{label}: root {root.hex()} != the JAX package's {want_root}")
     hashes = rec.calls.get("hash_to_g2_batch", 0)
     checks = rec.calls.get("card: pairing checks", 0)
     check(hashes == checks == n_checks,
-          f"block: {hashes} hash-to-G2 calls and {checks} pairing checks, "
-          f"expected {n_checks}")
+          f"{label}: {hashes} hash-to-G2 calls and {checks} pairing "
+          f"checks, expected {n_checks}")
     check(per_wrapper["clear_cofactor_g2"] == hashes
           and per_wrapper["pairing_check"] == checks,
-          f"block: {per_wrapper['clear_cofactor_g2']} cofactor and "
+          f"{label}: {per_wrapper['clear_cofactor_g2']} cofactor and "
           f"{per_wrapper['pairing_check']} pairing-check launches for "
           f"{hashes} hash-to-G2 calls and {checks} checks")
     replaced = ("g2_ladder", "field_op", "miller", "product_final")
     check(all(per_wrapper[name] == 0 for name in replaced),
-          f"block: a replaced kernel was launched: {per_wrapper}")
+          f"{label}: a replaced kernel was launched: {per_wrapper}")
     sec = rec.seconds
     card_s = sec.get("card: cofactor clearing", 0) \
         + sec.get("card: pairing checks", 0)
-    print(f"block: state_transition {block_s:.6f} s with BLS on: "
-          f"process_slots 97 -> 98 {sec.get('process_slots', 0):.6f} s, "
+    print(f"{label}: state_transition {block_s:.6f} s with BLS on: "
+          f"process_slots {slots} {sec.get('process_slots', 0):.6f} s, "
           f"committee scans {sec.get('committee scans', 0):.6f} s "
           f"({rec.calls.get('committee scans', 0)} scans of the registry), "
           f"host decode {sec.get('host decode', 0):.6f} s "
@@ -2504,36 +2757,115 @@ def block_phase():
           f"{card_s:.6f} s (cofactor clearing "
           f"{sec.get('card: cofactor clearing', 0):.6f} s, pairing checks "
           f"{sec.get('card: pairing checks', 0):.6f} s)")
-    print(f"block: launches {per_wrapper} ({n_checks} signature checks)")
-    print(f"block: root at slot {BLOCK_SLOT} {root.hex()} == host oracle == "
-          f"JAX package")
+    print(f"{label}: launches {per_wrapper} ({n_checks} signature checks)")
+    print(f"{label}: root at slot {int(state.slot)} {root.hex()} == host "
+          f"oracle == JAX package")
+    return launches
 
-    bad = tampered_block(spec, signed, facts)
+
+def rejected_at(label, spec, state, bad, where):
+    """state_transition of the tampered block `bad` must raise
+    AssertionError in `where`."""
     t0 = time.perf_counter()
     try:
-        spec.state_transition(tampered_pre, bad)
+        spec.state_transition(state, bad)
     except AssertionError as err:
         frames = [f.name for f in traceback.extract_tb(err.__traceback__)]
-        check(frames[-1] == "process_attestation",
-              f"block: tampered copy rejected at {frames[-3:]}")
-        print(f"block: the copy with a tampered first attestation is "
-              f"rejected at process_attestation "
-              f"({time.perf_counter() - t0:.6f} s)")
+        check(frames[-1] == where,
+              f"{label}: tampered copy rejected at {frames[-3:]}")
     else:
-        check(False, "block: the tampered copy was accepted")
-    sig_launches = sigpipe_block(spec, sigpipe_pre, sigpipe_tampered_pre,
-                                 signed, bad, n_checks)
+        check(False, f"{label}: the tampered copy was accepted")
+    return time.perf_counter() - t0
+
+
+@phase("block")
+def block_phase():
+    """The phase0 block path: `block_case` at N_BLOCK_VALIDATORS (a signed
+    block at slot 98 with 8 full-committee attestations, a proposer and an
+    attester slashing: 14 signature checks) through `block_by_checks`; a
+    copy whose first attestation carries the wrong signature must be
+    rejected there; then the same with the pipeline on (`sigpipe_block`)."""
+    spec = get_spec("phase0", "mainnet")
+    merkle.use_device_hashing()
+    t0 = time.perf_counter()
+    state, signed, facts = block_case(spec, N_BLOCK_VALIDATORS)
+    n_checks = len(facts["committees"]) + 6
+    print(f"block: pre-state of {N_BLOCK_VALIDATORS} validators with "
+          f"{facts['signers']} signers' keys and a block of "
+          f"{len(facts['committees'])} attestations (committees "
+          f"{facts['committees'][:2]}...), {n_checks} signature checks, "
+          f"built in {time.perf_counter() - t0:.6f} s (its state root from "
+          f"one transition of a copy with BLS off)", flush=True)
+    tampered_pre = state.copy()
+    sigpipe_pre = state.copy()
+    sigpipe_tampered_pre = state.copy()
+    launches = block_by_checks("block", spec, state, signed, n_checks,
+                               POST_BLOCK_ROOT_98,
+                               f"{START_SLOT} -> {BLOCK_SLOT}")
+    bad = tampered_block(spec, signed, facts)
+    bad_s = rejected_at("block", spec, tampered_pre, bad,
+                        "process_attestation")
+    print(f"block: the copy with a tampered first attestation is rejected "
+          f"at process_attestation ({bad_s:.6f} s)")
+    sig_launches = sigpipe_block(
+        "sigpipe block", spec, sigpipe_pre, sigpipe_tampered_pre, signed,
+        bad, n_checks, POST_BLOCK_ROOT_98, "process_attestation")
     return launches, sig_launches
 
 
-def sigpipe_block(spec, state, tampered_pre, signed, bad, n_checks):
+@phase("altair block")
+def altair_block_phase():
+    """The altair block path: `altair_block_case` at N_ALTAIR_BLOCK (a
+    signed block at slot 128, across the epoch boundary, with 8
+    full-committee attestations and a full 512-member sync aggregate: 11
+    signature checks) through `block_by_checks`, then the same with the
+    pipeline on (`sigpipe_block`: the sync aggregate's set collected with
+    its hint and looked up at process_sync_aggregate's seam), and a copy
+    whose sync aggregate signs a root with one byte changed, rejected at
+    process_sync_aggregate after bisection.  Prints the registry scans
+    that cost the block its time: every newly set flag reads the total
+    active balance, every sync participant the proposer (about 3,650 scans
+    when every flag is new)."""
+    spec = get_spec("altair", "mainnet")
+    merkle.use_device_hashing()
+    t0 = time.perf_counter()
+    state, signed, facts = altair_block_case(spec, N_ALTAIR_BLOCK)
+    n_checks = len(facts["committees"]) + 3
+    print(f"altair block: pre-state of {N_ALTAIR_BLOCK} validators at slot "
+          f"{EPOCH_SLOT}, every one with a key, and a block at slot "
+          f"{EPOCH_SLOT + 1} of {len(facts['committees'])} attestations "
+          f"(committees {facts['committees'][:2]}...) and a "
+          f"{spec.SYNC_COMMITTEE_SIZE}-member sync aggregate, {n_checks} "
+          f"signature checks, built in {time.perf_counter() - t0:.6f} s "
+          f"(its roots from a copy advanced and applied with BLS off)",
+          flush=True)
+    del facts["post"]
+    sigpipe_pre = state.copy()
+    sigpipe_tampered_pre = state.copy()
+    launches = block_by_checks(
+        "altair block", spec, state, signed, n_checks,
+        POST_ALTAIR_BLOCK_ROOT_128, f"{EPOCH_SLOT} -> {EPOCH_SLOT + 1}")
+    bad = tampered_sync_block(spec, signed, facts)
+    period = (EPOCH_SLOT + 1) // int(spec.SLOTS_PER_EPOCH) \
+        // int(spec.EPOCHS_PER_SYNC_COMMITTEE_PERIOD)
+    sig_launches = sigpipe_block(
+        "altair sigpipe block", spec, sigpipe_pre, sigpipe_tampered_pre,
+        signed, bad, n_checks, POST_ALTAIR_BLOCK_ROOT_128,
+        "process_sync_aggregate", want_hint=("sync", period))
+    return launches, sig_launches
+
+
+def sigpipe_block(label, spec, state, tampered_pre, signed, bad, n_checks,
+                  want_root, reject_at, want_hint=None):
     """The same block with `sigpipe.enable()`: one flush of its checks on
     the card (the committee sums, the one-launch fold), the seams reading
-    its verdicts.  The root must equal the host oracle and the JAX
-    package's, every check must hit the verdict map, the flush must be one
-    fold chain with no scalar check's ladder and no plain version, and
-    the tampered copy must be rejected at its attestation after
-    bisection.  Returns the BLS kernels' launches of the valid block."""
+    its verdicts.  The root must equal the host oracle and `want_root`,
+    the JAX package's, every check must hit the verdict map, the flush
+    must be one fold chain with no scalar check's ladder and no plain
+    version, a set collected with the aggregate-cache hint `want_hint`
+    (when given) must have had its committee sum cached, and the tampered
+    copy must be rejected in `reject_at` after bisection.  Returns the BLS
+    kernels' launches of the valid block."""
     plain = _plain_counts()
     sig_cache.clear()
     METRICS.reset()
@@ -2552,28 +2884,32 @@ def sigpipe_block(spec, state, tampered_pre, signed, bad, n_checks):
         rec.close()
         sigpipe.disable()
     check(_plain_counts() == plain,
-          "sigpipe block: a wrapper took its plain version")
+          f"{label}: a wrapper took its plain version")
     root = bytes(spec.hash_tree_root(state))
     oracle = host_oracle(state)
-    check(root == oracle and root.hex() == POST_BLOCK_ROOT_98,
-          f"sigpipe block: root {root.hex()}, host oracle {oracle.hex()}, "
-          f"the JAX package's {POST_BLOCK_ROOT_98}")
+    check(root == oracle and root.hex() == want_root,
+          f"{label}: root {root.hex()}, host oracle {oracle.hex()}, "
+          f"the JAX package's {want_root}")
     check(snap.get("seam_hits") == n_checks
           and snap.get("seam_misses", 0) == 0,
-          f"sigpipe block: {snap.get('seam_hits')} seam hits and "
+          f"{label}: {snap.get('seam_hits')} seam hits and "
           f"{snap.get('seam_misses', 0)} misses, expected {n_checks} and 0")
     check(launches["fold_lanes"] == bls381_cuda.FOLD_LAUNCHES
           and launches["clear_cofactor_g2"] >= 1
           and launches["segment_sum"] >= 1
           and launches["g2_ladder"] == 0 and launches["miller"] == 1
           and launches["product_final"] == 2,
-          f"sigpipe block: launches {launches}, expected one fold chain "
+          f"{label}: launches {launches}, expected one fold chain "
           f"and no scalar check")
     check(snap["miller_loops_per_flush"]["total"] == n_checks + 1,
-          f"sigpipe block: {snap['miller_loops_per_flush']} legs")
+          f"{label}: {snap['miller_loops_per_flush']} legs")
+    hints = [hint for _agg, hint in sig_cache.AGGREGATES._cache.values()]
+    check(want_hint is None or want_hint in hints,
+          f"{label}: no committee sum cached with the hint {want_hint}")
+    hints = sorted({hint[0] for hint in hints if hint})
     sec, calls = rec.seconds, rec.calls
-    print(f"sigpipe block: state_transition {block_s:.6f} s with BLS on "
-          f"and the pipeline on: process_slots 97 -> 98 "
+    print(f"{label}: state_transition {block_s:.6f} s with BLS on "
+          f"and the pipeline on: process_slots "
           f"{sec.get('process_slots', 0):.6f} s, collection of "
           f"{snap['signatures_scheduled']} sets "
           f"{sec.get('collection', 0):.6f} s, committee scans "
@@ -2586,29 +2922,21 @@ def sigpipe_block(spec, state, tampered_pre, signed, bad, n_checks):
           f"{sec.get('card: fold flush', 0):.6f} s (of which hash-to-field "
           f"with SSWU and isogeny "
           f"{sec.get('hash-to-field, SSWU, isogeny', 0):.6f} s)")
-    print(f"sigpipe block: {snap['seam_hits']} seam hits, 0 misses, "
+    print(f"{label}: {snap['seam_hits']} seam hits, 0 misses, "
           f"{snap['miller_loops_per_flush']['total']} Miller legs in one "
-          f"flush; launches {launches}")
-    print(f"sigpipe block: root at slot {BLOCK_SLOT} {root.hex()} == host "
+          f"flush; cached aggregates by hint {hints}; launches {launches}")
+    print(f"{label}: root at slot {int(state.slot)} {root.hex()} == host "
           f"oracle == JAX package")
 
     METRICS.reset()
     sigpipe.enable()
-    t0 = time.perf_counter()
     try:
-        spec.state_transition(tampered_pre, bad)
-    except AssertionError as err:
-        frames = [f.name for f in traceback.extract_tb(err.__traceback__)]
-        check(frames[-1] == "process_attestation",
-              f"sigpipe block: tampered copy rejected at {frames[-3:]}")
+        bad_s = rejected_at(label, spec, tampered_pre, bad, reject_at)
         check(METRICS.count("fused_batch_failures") == 1,
-              "sigpipe block: the tampered flush did not fail")
-        print(f"sigpipe block: the copy with a tampered first attestation "
-              f"is rejected at process_attestation after "
-              f"{METRICS.count('bisect_dispatches')} bisection probes "
-              f"({time.perf_counter() - t0:.6f} s)")
-    else:
-        check(False, "sigpipe block: the tampered copy was accepted")
+              f"{label}: the tampered flush did not fail")
+        print(f"{label}: the tampered copy is rejected at {reject_at} "
+              f"after {METRICS.count('bisect_dispatches')} bisection "
+              f"probes ({bad_s:.6f} s)")
     finally:
         sigpipe.disable()
     return per_kernel
@@ -3709,8 +4037,9 @@ def kzg_phase():
 
 
 PHASES = ("kernel", "main path", "incremental", "gather kernel", "epoch",
-          "epoch kernel", "bls kernels", "bls", "flush kernels", "flush",
-          "block", "msm kernel", "kzg")
+          "altair epoch", "epoch kernel", "bls kernels", "bls",
+          "flush kernels", "flush", "block", "altair block", "msm kernel",
+          "kzg")
 
 
 def main(argv=None):
@@ -3735,12 +4064,13 @@ def main(argv=None):
             "main path": main_path_phase, "incremental": incremental_phase,
             "gather kernel": lambda: gather_kernel_phase(
                 n_sms, max_mhz, CACHE_BUILD_ROUNDS, REROOT_ROUNDS),
-            "epoch": epoch_phase,
+            "epoch": epoch_phase, "altair epoch": altair_epoch_phase,
             "epoch kernel": lambda: epoch_kernel_phase(n_sms, max_mhz),
             "bls kernels": lambda: bls_kernels_phase(n_sms, max_mhz),
             "bls": bls_phase,
             "flush kernels": lambda: flush_kernels_phase(n_sms, max_mhz),
             "flush": flush_phase, "block": block_phase,
+            "altair block": altair_block_phase,
             "msm kernel": lambda: msm_kernel_phase(n_sms, max_mhz),
             "kzg": kzg_phase}
         for name in only:
@@ -3753,55 +4083,66 @@ def main(argv=None):
         incremental_phase()
     gather_err, g, gather_tail = gather_kernel_phase(
         n_sms, max_mhz, build_sizes, reroot_sizes)
-    epoch_launches = epoch_phase()
+    epoch_launches = {"epoch": epoch_phase(),
+                      "altair epoch": altair_epoch_phase()}
     epoch_err, e = epoch_kernel_phase(n_sms, max_mhz)
     bls_err, bls_times = bls_kernels_phase(n_sms, max_mhz)
     bls_phase()
     flush_err, flush_times = flush_kernels_phase(n_sms, max_mhz)
     flush_launches = flush_phase()
     bls_launches, sig_launches = block_phase()
+    altair_launches, altair_sig_launches = altair_block_phase()
+
+    def blocks(name, sig=False):
+        # each block path's own count, the phase0 block's first
+        counts = (sig_launches, altair_sig_launches) if sig \
+            else (bls_launches, altair_launches)
+        return {"block": counts[0][name], "altair block": counts[1][name]}
     msm_err, msm_times = msm_kernel_phase(n_sms, max_mhz)
     kzg_launches = kzg_phase()
     t = times[MAIN_PATH_PAIRS]
     csrc = "consensus_specs_tpu_torch/ops/csrc/"
     bls_rows = [dict(
         name=name, route="cuda", source=csrc + source, replaces=replaces,
-        launches=count, max_abs_err=err[name], ms=tm[name][0],
+        launches=next(iter(paths.values())), launches_by_path=paths,
+        max_abs_err=err[name], ms=tm[name][0],
         plain_ms=tm[name][1], bound_ms=tm[name][2], bound_by=tm[name][3],
         library_ms=None)
-        for name, source, replaces, count, err, tm in (
+        for name, source, replaces, paths, err, tm in (
             ("bls381_cofactor", "bls381_cofactor.cu",
              "consensus_specs_tpu/ops/bls_tpu.py:38",
-             bls_launches["bls381_cofactor"], bls_err, bls_times),
+             blocks("bls381_cofactor"), bls_err, bls_times),
             ("bls381_check", "bls381_check.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:706",
-             bls_launches["bls381_check"], bls_err, bls_times),
+             blocks("bls381_check"), bls_err, bls_times),
             ("bls381_pairing", "bls381_pairing.cuh",
              "consensus_specs_tpu/ops/pairing_jax.py:393",
-             sig_launches["bls381_pairing"],
+             blocks("bls381_pairing", sig=True),
              {"bls381_pairing": max(bls_err["bls381_pairing"],
                                     flush_err["bls381_pairing"])},
              flush_times),
             ("bls381_g2", "bls381_g2.cu",
              "consensus_specs_tpu/ops/curve_jax.py:175",
-             flush_launches["g2_ladder"],
+             {"flush": flush_launches["g2_ladder"]},
              {"bls381_g2": max(bls_err["bls381_g2"],
                                flush_err["bls381_g2"])}, flush_times),
             ("bls381_field", "bls381_field.cu",
              "consensus_specs_tpu/ops/fq.py:265",
-             bls_launches["bls381_field"], bls_err, bls_times),
+             blocks("bls381_field"), bls_err, bls_times),
             ("bls381_segment_sum", "bls381_segment.cuh",
              "consensus_specs_tpu/ops/g1_sweep.py:84",
-             sig_launches["bls381_segment_sum"], flush_err, flush_times),
+             blocks("bls381_segment_sum", sig=True), flush_err,
+             flush_times),
             ("bls381_g1_ladder", "bls381_msm.cu",
              "consensus_specs_tpu/ops/msm.py:271",
-             flush_launches["g1_ladder"], flush_err, flush_times),
+             {"flush": flush_launches["g1_ladder"]}, flush_err,
+             flush_times),
             ("bls381_fold", "bls381_fold.cu",
              "consensus_specs_tpu/ops/pairing_jax.py:568",
-             sig_launches["bls381_fold"], flush_err, flush_times),
+             blocks("bls381_fold", sig=True), flush_err, flush_times),
             ("bls381_pippenger", "bls381_pippenger.cu",
              "consensus_specs_tpu/ops/msm.py:139",
-             kzg_launches["pippenger_g1"],
+             {"kzg": kzg_launches["pippenger_g1"]},
              {"bls381_pippenger": msm_err},
              {"bls381_pippenger": (msm_times["ms"], msm_times["plain_ms"],
                                    msm_times["bound_ms"],
@@ -3810,31 +4151,39 @@ def main(argv=None):
         "name": "sha256_pairs", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_pairs.cu",
         "replaces": "consensus_specs_tpu/ops/sha256_pallas.py:89",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}, {
+        "launches": launches, "launches_by_path": {"main path": launches},
+        "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None}, {
         "name": "sha256_tree_tail", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_pairs.cu",
         "replaces": "consensus_specs_tpu/ops/sha256_pallas.py:89",
-        "launches": tree_tail_launches, "max_abs_err": max_err,
+        "launches": tree_tail_launches,
+        "launches_by_path": {"main path": tree_tail_launches},
+        "max_abs_err": max_err,
         **{k: tree_tail[k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by")}, "library_ms": None}, {
         "name": "sha256_gather", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_gather.cu",
         "replaces": "consensus_specs_tpu/ops/sha256.py:146",
-        "launches": gather_launches, "max_abs_err": gather_err,
+        "launches": gather_launches,
+        "launches_by_path": {"incremental": gather_launches},
+        "max_abs_err": gather_err,
         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": None}, {
         "name": "sha256_gather_tail", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/sha256_gather.cu",
         "replaces": "consensus_specs_tpu/ops/sha256.py:146",
-        "launches": gather_tail_launches, "max_abs_err": gather_err,
+        "launches": gather_tail_launches,
+        "launches_by_path": {"incremental": gather_tail_launches},
+        "max_abs_err": gather_err,
         **{k: gather_tail[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by")}, "library_ms": None}, {
         "name": "epoch_sweep", "route": "cuda",
         "source": "consensus_specs_tpu_torch/ops/csrc/epoch_sweep.cu",
         "replaces": "consensus_specs_tpu/ops/epoch_sweep.py:74",
-        "launches": epoch_launches, "max_abs_err": epoch_err,
+        "launches": epoch_launches["epoch"],
+        "launches_by_path": epoch_launches, "max_abs_err": epoch_err,
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None}, *bls_rows]}))
     print(card)

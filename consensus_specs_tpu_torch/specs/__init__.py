@@ -1,13 +1,14 @@
 """Spec registry: one cached spec instance per (fork, preset, config).
 
 Counterpart of consensus_specs_tpu/specs/__init__.py, with the forks ported
-so far (phase0).
+so far (phase0, altair).
 """
 from __future__ import annotations
 
+from .altair import AltairSpec
 from .phase0 import Phase0Spec
 
-_REGISTRY: dict = {"phase0": Phase0Spec}
+_REGISTRY: dict = {"phase0": Phase0Spec, "altair": AltairSpec}
 _INSTANCES: dict = {}
 
 

@@ -6,11 +6,13 @@ epoch passes are per-validator Python loops with O(n) helpers inside
 mainnet scale.  This engine reads the registry ONCE per epoch into columns
 (`StateArrays`), builds the attester masks and the global scalars on the
 host, runs justification on the host, and hands every hot pass
-(attestation deltas, slashings, effective-balance hysteresis, the
+(phase0's attestation deltas or altair's participation-flag deltas and
+inactivity scores, slashings, effective-balance hysteresis, the
 registry-eligibility masks) to ONE sweep: `ops.epoch_sweep.run_sweep`, one
-upload, the CUDA kernel's launch sequence, one download.  Balances write
-back through `ssz.incremental.bulk_set_basic` in one call, so the re-root
-stays the O(dirty) fused merkle sweep; the rare registry mutations and the
+upload, the CUDA kernel's launch sequence, one download.  Balances (and
+altair's inactivity scores) write back through
+`ssz.incremental.bulk_set_basic`, one call a column, so the re-root stays
+the O(dirty) fused merkle sweep; the rare registry mutations and the
 effective-balance changes stay scalar spec writes.
 
 Differences from the reference:
@@ -21,14 +23,15 @@ Differences from the reference:
   `ops.epoch_sweep.plain_sweep` on CPU copies of the inputs and compared;
   a mismatch counts `epoch_guard_mismatches` and raises RuntimeError, and
   never substitutes the oracle's lanes;
-- `_collect` builds the phase0 family only; the altair and electra
-  branches come with the altair spec (ROADMAP.md).  The sweep itself
-  already computes both families.
+- `_collect` builds the phase0 and the altair family; the electra branch
+  (its compounding caps, the scalar registry and the pending queues)
+  comes with the electra spec (ROADMAP.md).  The sweep itself already
+  computes electra's slashings.
 
 Public surface: ENABLED, SWEEP_SITE, scalar_epoch, fused_epoch, set_guard.
 `scalar_epoch()` restores the reference-shaped scalar pass list
-(`Phase0Spec.process_epoch`), which the tests hold the fused engine
-against.
+(`Phase0Spec.process_epoch`, `AltairSpec.process_epoch`), which the tests
+hold the fused engine against.
 """
 from __future__ import annotations
 
@@ -152,6 +155,14 @@ def phase0_attestation_masks(spec, state, epoch, targets_only=False):
     return src, tgt, head, best_key, best_prop
 
 
+def _participation(state, which: str, n: int) -> np.ndarray:
+    """An altair participation column ("previous" or "current") as int64
+    flags."""
+    col = (state.previous_epoch_participation if which == "previous"
+           else state.current_epoch_participation)
+    return np.fromiter((int(x) for x in col), np.int64, n)
+
+
 # ---------------------------------------------------------------------------
 # sweep inputs: everything the sweep needs, host-extracted once
 # ---------------------------------------------------------------------------
@@ -176,19 +187,16 @@ class SweepInputs:
         self.statics = statics
 
 
-def _collect(spec, state, arr, masks_prev, do_rewards, leak, tb, cur, prev):
-    """Build the phase0 SweepInputs from the post-justification state.
-    Every value here is read ONCE; the sweep is a pure function of this
-    bundle."""
+def _collect(spec, state, arr, part_prev, masks_prev, do_rewards, leak,
+             tb, cur, prev):
+    """Build the SweepInputs of the spec's family (phase0, or altair from
+    the previous epoch's participation flags `part_prev`) from the
+    post-justification state.  Every value here is read ONCE; the sweep is
+    a pure function of this bundle."""
     n = arr.n
     incr = int(spec.EFFECTIVE_BALANCE_INCREMENT)
     adj = min(sum(int(x) for x in state.slashings)
               * int(spec.proportional_slashing_multiplier()), tb)
-    if masks_prev is None:
-        masks_prev = (np.zeros(n, bool), np.zeros(n, bool),
-                      np.zeros(n, bool), np.full(n, _I64MAX, np.int64),
-                      np.zeros(n, np.int64))
-    src, tgt, head, best_key, best_prop = masks_prev
     cols = {
         "eff": arr.eff, "slashed": arr.slashed,
         "activation": arr.activation, "exit_epoch": arr.exit,
@@ -196,16 +204,12 @@ def _collect(spec, state, arr, masks_prev, do_rewards, leak, tb, cur, prev):
         "withdrawable": arr.withdrawable,
         "balances": arr.balances,
         "max_eff": np.full(n, int(spec.MAX_EFFECTIVE_BALANCE), np.int64),
-        "src": src, "tgt": tgt, "head": head,
-        "best_key": best_key, "best_prop": best_prop,
     }
     scalars = {
         "cur": cur, "prev": prev,
         "finalized": int(state.finalized_checkpoint.epoch),
         "slash_epoch": cur + int(spec.EPOCHS_PER_SLASHINGS_VECTOR) // 2,
-        "tb": tb, "adj": adj, "sqrt_tb": isqrt(tb),
-        "finality_delay": (int(spec.get_finality_delay(state))
-                           if do_rewards else 1),
+        "tb": tb, "adj": adj,
     }
     statics = {
         "do_rewards": bool(do_rewards), "leak": bool(leak), "incr": incr,
@@ -214,12 +218,43 @@ def _collect(spec, state, arr, masks_prev, do_rewards, leak, tb, cur, prev):
         "hyst_q": int(spec.HYSTERESIS_QUOTIENT),
         "hyst_down": int(spec.HYSTERESIS_DOWNWARD_MULTIPLIER),
         "hyst_up": int(spec.HYSTERESIS_UPWARD_MULTIPLIER),
-        "brf": int(spec.BASE_REWARD_FACTOR),
-        "brpe": int(spec.BASE_REWARDS_PER_EPOCH),
-        "prop_q": int(spec.PROPOSER_REWARD_QUOTIENT),
-        "inact_q": int(spec.INACTIVITY_PENALTY_QUOTIENT),
     }
-    return SweepInputs("phase0", n, cols, scalars,
+    if spec.is_post("altair"):
+        family = "altair"
+        cols["part_prev"] = part_prev
+        cols["scores"] = np.fromiter(
+            (int(s) for s in state.inactivity_scores), np.int64, n)
+        bias = int(spec.config.INACTIVITY_SCORE_BIAS)
+        scalars.update(
+            base_per_incr=incr * int(spec.BASE_REWARD_FACTOR) // isqrt(tb),
+            bias=bias,
+            recovery=int(spec.config.INACTIVITY_SCORE_RECOVERY_RATE),
+            inact_denom=bias * int(spec.inactivity_penalty_quotient()))
+        statics.update(
+            electra=False, wd=int(spec.WEIGHT_DENOMINATOR),
+            target_flag=int(spec.TIMELY_TARGET_FLAG_INDEX),
+            flags=tuple(
+                (i, int(w), i == int(spec.TIMELY_HEAD_FLAG_INDEX))
+                for i, w in enumerate(spec.PARTICIPATION_FLAG_WEIGHTS)))
+    else:
+        family = "phase0"
+        if masks_prev is None:
+            masks_prev = (np.zeros(n, bool), np.zeros(n, bool),
+                          np.zeros(n, bool), np.full(n, _I64MAX, np.int64),
+                          np.zeros(n, np.int64))
+        src, tgt, head, best_key, best_prop = masks_prev
+        cols.update(src=src, tgt=tgt, head=head, best_key=best_key,
+                    best_prop=best_prop)
+        scalars.update(
+            sqrt_tb=isqrt(tb),
+            finality_delay=(int(spec.get_finality_delay(state))
+                            if do_rewards else 1))
+        statics.update(
+            brf=int(spec.BASE_REWARD_FACTOR),
+            brpe=int(spec.BASE_REWARDS_PER_EPOCH),
+            prop_q=int(spec.PROPOSER_REWARD_QUOTIENT),
+            inact_q=int(spec.INACTIVITY_PENALTY_QUOTIENT))
+    return SweepInputs(family, n, cols, scalars,
                        tuple(sorted(statics.items())))
 
 
@@ -287,16 +322,18 @@ def _write_effective_balances(state, arr, new_eff: np.ndarray) -> int:
 
 def fused_epoch(spec, state) -> bool:
     """Run the fused head of `process_epoch` (justification through the
-    effective-balance update) with exactly ONE `ops.epoch_sweep`
-    dispatch.  Returns True when it handled that prefix (the caller then
-    runs only the tail resets); returns False, before mutating anything,
-    when the engine is disabled or the registry is empty, so the caller
-    falls through to the scalar pass list."""
+    effective-balance update, altair's inactivity updates among them) with
+    exactly ONE `ops.epoch_sweep` dispatch.  Returns True when it handled
+    that prefix (the caller then runs only the tail resets); returns
+    False, before mutating anything, when the engine is disabled or the
+    registry is empty, so the caller falls through to the scalar pass
+    list."""
     if not ENABLED:
         return False
     n = len(state.validators)
     if n == 0:
         return False
+    altair_family = bool(spec.is_post("altair"))
     cur = int(spec.get_current_epoch(state))
     prev = int(spec.get_previous_epoch(state))
     genesis = int(spec.GENESIS_EPOCH)
@@ -306,13 +343,25 @@ def fused_epoch(spec, state) -> bool:
     tb = arr.total_active_balance(cur, incr)
 
     # -- host prefix: justification (checkpoint/bit mutations only) ----
+    part_prev = None
     masks_prev = None
-    if do_rewards:
+    if altair_family:
+        part_prev = _participation(state, "previous", n)
+    elif do_rewards:
         masks_prev = phase0_attestation_masks(spec, state, prev)
     if cur > genesis + 1:
-        prev_m = masks_prev[1] & ~arr.slashed
-        cur_m = phase0_attestation_masks(
-            spec, state, cur, targets_only=True)[1] & ~arr.slashed
+        if altair_family:
+            # unslashed active validators with the target flag
+            tflag = int(spec.TIMELY_TARGET_FLAG_INDEX)
+            part_cur = _participation(state, "current", n)
+            prev_m = (arr.active(prev) & (((part_prev >> tflag) & 1) == 1)
+                      & ~arr.slashed)
+            cur_m = (arr.active(cur) & (((part_cur >> tflag) & 1) == 1)
+                     & ~arr.slashed)
+        else:
+            prev_m = masks_prev[1] & ~arr.slashed
+            cur_m = phase0_attestation_masks(
+                spec, state, cur, targets_only=True)[1] & ~arr.slashed
         spec.weigh_justification_and_finalization(
             state, tb,
             max(incr, int(arr.eff[prev_m].sum())),
@@ -320,18 +369,25 @@ def fused_epoch(spec, state) -> bool:
 
     # leak/finality/finalized all read the POST-justification state
     leak = bool(spec.is_in_inactivity_leak(state)) if do_rewards else False
-    inp = _collect(spec, state, arr, masks_prev, do_rewards, leak, tb,
-                   cur, prev)
+    inp = _collect(spec, state, arr, part_prev, masks_prev, do_rewards,
+                   leak, tb, cur, prev)
 
     # -- the ONE dispatch ----------------------------------------------
     METRICS.inc("epoch_sweep_dispatches")
     out = epoch_sweep.run_sweep(inp)
     if _GUARD_RNG.random() < _GUARD_RATE:
         _guard(inp, out)
-    new_bal, new_eff, elig_q, eject, ready = out
+    if altair_family:
+        new_bal, new_scores, new_eff, elig_q, eject, ready = out
+    else:
+        new_bal, new_eff, elig_q, eject, ready = out
 
     # -- batched writeback + the rare scalar mutations ------------------
-    wb = _bulk_write(state.balances, arr.balances, new_bal)
+    wb = 0
+    if altair_family:
+        wb += _bulk_write(state.inactivity_scores, inp.cols["scores"],
+                          new_scores)
+    wb += _bulk_write(state.balances, arr.balances, new_bal)
     _apply_registry(spec, state, cur, arr, elig_q, eject, ready)
     wb += _write_effective_balances(state, arr, new_eff)
     METRICS.inc("epoch_writeback_elems", wb)

@@ -6,7 +6,7 @@
 Builds `chip_smoke.block_case` (the PyTorch port's containers and keys,
 seeded: the pre-state at slot 97 and a signed block at slot 98 with 8
 full-committee attestations, a proposer and an attester slashing) with N
-validators (default: chip_smoke.N_VALIDATORS, 262,144) on the CPU, carries
+validators (default: chip_smoke.N_BLOCK_VALIDATORS, 16,384) on the CPU, carries
 both into the JAX package as SSZ bytes, runs the reference's
 `state_transition` with its native BLS backend (every signature checked)
 and prints the post-state root.  chip_smoke.py's phase "block" holds the
@@ -33,7 +33,8 @@ def main():
     from consensus_specs_tpu_torch.ssz import merkle
     port.set_device("cpu")
     merkle.use_host_hashing()
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else chip_smoke.N_VALIDATORS
+    n = (int(sys.argv[1]) if len(sys.argv) > 1
+         else chip_smoke.N_BLOCK_VALIDATORS)
 
     t0 = time.perf_counter()
     state, signed, facts = chip_smoke.block_case(

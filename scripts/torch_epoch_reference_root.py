@@ -4,11 +4,11 @@
     JAX_PLATFORMS=cpu python3 scripts/torch_epoch_reference_root.py [N]
 
 Builds `chip_smoke.epoch_state` (the PyTorch port's containers, seeded) with
-N validators (default: chip_smoke.N_VALIDATORS, 262,144), carries it into the
-JAX package as SSZ bytes, runs the reference's `process_slots(state, 128)`
-on the CPU and prints the root at slot 128.  chip_smoke.py's phase "epoch"
-holds the port's run on the card against this root (POST_EPOCH_ROOT_128).
-Memory: a few GiB at the default size, for the two copies of the state.
+N validators (default: chip_smoke.N_EPOCH_VALIDATORS, 65,536), carries it
+into the JAX package as SSZ bytes, runs the reference's
+`process_slots(state, 128)` on the CPU and prints the root at slot 128.
+chip_smoke.py's phase "epoch" holds the port's run on the card against
+this root (POST_EPOCH_ROOT_128).  Memory: two copies of the state.
 """
 import gc
 import importlib.util
@@ -26,7 +26,8 @@ def main():
     chip_smoke = importlib.util.module_from_spec(spec_file)
     spec_file.loader.exec_module(chip_smoke)
     from consensus_specs_tpu_torch.specs import get_spec
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else chip_smoke.N_VALIDATORS
+    n = (int(sys.argv[1]) if len(sys.argv) > 1
+         else chip_smoke.N_EPOCH_VALIDATORS)
 
     t0 = time.perf_counter()
     data = chip_smoke.epoch_state(get_spec("phase0", "mainnet"),

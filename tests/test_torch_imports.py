@@ -34,6 +34,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import consensus_specs_tpu_torch.ops.sha256_cuda\n"
         "import consensus_specs_tpu_torch.ops.epoch_sweep_cuda\n"
         "import consensus_specs_tpu_torch.specs.epoch_fast\n"
+        "import consensus_specs_tpu_torch.specs.altair\n"
         "import consensus_specs_tpu_torch.ops.bls381_cuda\n"
         "import consensus_specs_tpu_torch.ops.bls_cuda\n"
         "import consensus_specs_tpu_torch.utils.bls\n"
@@ -51,6 +52,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "from consensus_specs_tpu_torch.ops import cuda_build\n"
         "from consensus_specs_tpu_torch.specs import get_spec\n"
         "get_spec('phase0', 'minimal')\n"
+        "get_spec('altair', 'mainnet')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'consensus_specs_tpu')]\n"
         "print(bad, cuda_build.build_route)\n"
